@@ -1,0 +1,486 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (`stark_tpu_torch`) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (every failure propagates; nothing is caught):
+  1. the card's name and power limit; TF32 switched off for matmuls and
+     cuDNN (the JAX package forces full-precision f32 products);
+  2. build the kernels of stark_tpu_torch/csrc with nvcc (sm_90a);
+  3. hold every kernel against its plain PyTorch twin on the card, in f32
+     and f64, at the shapes of the 64x64 hanging cloth (the dense-assembly
+     site of kernel A at the 32x32 cloth's, where that branch runs), and time
+     kernel, twin and the one-call PyTorch yardstick where there is one;
+  4. run the 64x64 hanging cloth (Cotton_Fabric, 0.4 m, two pinned corners)
+     in float32 through Simulation.run_one_time_step and check it: finite,
+     sagging, pins held, and every kernel of the path launched;
+  5. run the 32x32 cloth in float32 (the dense Newton-Schulz branch);
+  6. run the hanging_cloth_16 golden scene in float64 for 30 steps against
+     the reference C++ trajectory in tests/golden/;
+  7. print the kernels' JSON line, the card line, and the result line.
+
+Exits non-zero without a CUDA device. Long logs (ptxas report,
+summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
+goes is measured on demand by `python3 -m stark_tpu_torch.tools.profile_stages`.
+"""
+from __future__ import annotations
+
+import gzip
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from stark_tpu_torch.tools.timing import card_line, events_ms, graph_ms
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+OUT_DIR = os.path.join(ROOT, "chiprun_out", "chip_smoke")
+GOLDEN = os.path.join(ROOT, "tests", "golden", "hanging_cloth_16.txt.gz")
+DEVICE = "cuda"
+N_MAIN, N_DENSE, MAIN_STEPS, DENSE_STEPS = 64, 32, 10, 3
+
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
+# float32 rate outside the tensor cores; f64 outside the tensor cores is half
+MEM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+
+
+def log(msg=""):
+    print(msg, flush=True)
+
+
+def bound_ms(nbytes: float, flops: float, dtype) -> tuple:
+    tb = nbytes / MEM_BYTES_PER_S * 1e3
+    tf = flops / PEAK_FLOPS[dtype] * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# scenes
+# ---------------------------------------------------------------------------
+def make_cloth(n: int, size: float, dtype: str, **sim_kw):
+    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch.models.deformables.energies import PrescribedPositionsParams
+    from stark_tpu_torch.presets.presets import SurfaceParams
+
+    s = Settings()
+    s.output.simulation_name = f"chip_smoke_cloth_{n}"
+    s.output.enable_output = False
+    s.output.enable_frame_writes = False
+    s.device.device = DEVICE
+    s.device.dtype = dtype
+    s.simulation.init_frictional_contact = False
+    for k, v in sim_kw.items():
+        setattr(s.simulation, k, v)
+    sim = Simulation(s)
+    h = sim.presets.deformables.add_surface_grid(
+        "cloth", (size, size), (n, n), SurfaceParams.Cotton_Fabric())
+    return sim, h, PrescribedPositionsParams
+
+
+def pin_top_corners(sim, h, Params, size, stiffness=None):
+    hd = size / 2.0
+    bc = Params() if stiffness is None else Params().set_stiffness(stiffness)
+    for cx in (hd, -hd):
+        sim.deformables.prescribed_positions.add_inside_aabb(
+            h.point_set, (cx, hd, 0.0), (0.001, 0.001, 0.001), bc)
+
+
+def frozen_inputs(sim, dense: bool, seed: int):
+    """Initialize the scene, then one energy_grad_hess at a seeded random
+    velocity: the tables, topology and element Hessians the main path
+    hands the kernels."""
+    from stark_tpu_torch.solver import project
+
+    sim.stark._initialize()
+    nm = sim.stark.newton
+    ev = nm._ev
+    data = sim._get_static_data()
+    glob = sim._get_glob()
+    topo = ev.topology(data, dense=dense)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.normal(0.0, 0.05, (nm.n_blocks, 3)),
+                        dtype=sim.stark.dtype, device=DEVICE)
+    _E, _aux, _g, hess = ev.energy_grad_hess(u, data, glob, topo)
+    stat, _ = ev.split_dyn(hess.keys())
+    hp, _ = project.project_all({k: hess[k] for k in stat}, 1e-10, False,
+                                {k: data[k] for k in stat}, jacobi_sweeps=8,
+                                psd_names=nm._psd_names)
+    _conn, H_cat = ev.cat_with_live(topo.conn_cat, hp)
+    return nm, ev, data, topo, hess, H_cat
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their twins
+# ---------------------------------------------------------------------------
+def check(name, dtype, err, tol) -> float:
+    """Element-wise |kernel - twin| <= tol; returns the max abs error."""
+    err = err.double()
+    ratio = float((err / tol.double()).max())
+    worst = float(err.max())
+    log(f"  {name:<28} {str(dtype):<14} max_abs_err={worst:.3e}  "
+        f"max err/tol={ratio:.3f}  {'ok' if ratio <= 1.0 else 'FAIL'}")
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name} ({dtype}) disagrees with its twin: "
+                             f"err/tol = {ratio:.3e}")
+    return worst
+
+
+def sum_tol(absref, dtype, k=64.0):
+    """Tolerance of a sum taken in another order: k * eps * sum|terms|."""
+    return k * torch.finfo(dtype).eps * absref + torch.finfo(dtype).tiny
+
+
+def kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32):
+    from stark_tpu_torch.ops import block3, hvp_bucket as hb, pd_project as pd
+    from stark_tpu_torch.ops import segment_reduce as sr
+
+    rng = np.random.default_rng(7)
+    results = {}
+
+    def payload_for(csr, width, dtype):
+        return torch.as_tensor(rng.normal(size=(csr.n_rows, width)),
+                               dtype=dtype, device=DEVICE)
+
+    for dtype in (torch.float64, torch.float32):
+        main = dtype == torch.float32   # the main path runs float32
+        log(f"-- {dtype}")
+        # ---- A at its three sites ----
+        b = ev64.max_arity
+        sites = {
+            "egh": (topo64.egh_csr, payload_for(topo64.egh_csr, 9, dtype)),
+            "diag": (topo64.csr_cat, torch.einsum(
+                "eiaib->eiab", H64.to(dtype).reshape(-1, b, 3, b, 3)
+            ).reshape(-1, 9).contiguous()),
+            "dense": (topo32.pid_csr, H32.to(dtype).reshape(
+                H32.shape[0], b, 3, b, 3).permute(0, 1, 3, 2, 4)
+                .reshape(-1, 9).contiguous()),
+        }
+        for site, (csr, pay) in sites.items():
+            out = sr.segment_reduce(pay, csr, site)
+            ref = sr.segment_reduce_plain(pay, csr)
+            absref = sr.segment_reduce_plain(pay.abs(), csr)
+            torch.cuda.synchronize()
+            err = check(f"segment_reduce[{site}]", dtype, (out - ref).abs(),
+                        sum_tol(absref, dtype))
+            if main:
+                perm64 = csr.perm.to(torch.int64)
+                rows = torch.full((csr.n_rows,), csr.n_seg, dtype=torch.int64,
+                                  device=DEVICE)
+                rows[perm64] = csr.seg
+                lib = torch.zeros((csr.n_seg + 1, pay.shape[1]), dtype=dtype,
+                                  device=DEVICE)
+                # only the payload rows the CSR keeps are read
+                kept = csr.perm.numel() * pay.shape[1]
+                bnd = bound_ms(kept * pay.element_size()
+                               + nbytes(csr.perm, csr.offsets, out), kept, dtype)
+                results[f"segment_reduce[{site}]"] = dict(
+                    max_abs_err=err,
+                    ms=graph_ms(lambda: sr.segment_reduce(pay, csr, site)),
+                    plain_ms=graph_ms(lambda: sr.segment_reduce_plain(pay, csr)),
+                    library_ms=graph_ms(lambda: lib.index_add_(0, rows, pay)),
+                    bound_ms=bnd[0], bound_by=bnd[1],
+                    shape=f"payload {tuple(pay.shape)} -> ({csr.n_seg}, 9)")
+
+        # ---- B ----
+        Hd = H64.to(dtype).contiguous()
+        p = torch.as_tensor(rng.normal(size=(ev64.n_blocks, 3)), dtype=dtype,
+                            device=DEVICE)
+        q = hb.hvp_bucket(p, topo64.conn_cat32, Hd, topo64.csr_cat)
+        q_ref = hb.hvp_bucket_plain(p, topo64.conn_cat32, Hd, topo64.csr_cat)
+        q_abs = hb.hvp_bucket_plain(p.abs(), topo64.conn_cat32, Hd.abs(),
+                                    topo64.csr_cat)
+        torch.cuda.synchronize()
+        err = check("hvp_bucket", dtype, (q - q_ref).abs(), sum_tol(q_abs, dtype))
+        if main:
+            # the kernel reads, for each kept CSR entry (e, a), the 3 rows of
+            # H_e at a and in them the 3 columns of each non-dummy block of
+            # conn_e: 9 * n_e values per entry, 9 * n_e^2 per element
+            real = (topo64.conn_cat32 < ev64.n_blocks).sum(1)
+            b64 = topo64.conn_cat32.shape[1]
+            e_of = topo64.csr_cat.perm.to(torch.int64) // b64
+            h_read = 9 * int(real[e_of].sum())
+            bnd = bound_ms(h_read * Hd.element_size()
+                           + nbytes(topo64.conn_cat32, p, topo64.csr_cat.perm,
+                                    topo64.csr_cat.offsets, q),
+                           2.0 * h_read, dtype)
+            results["hvp_bucket"] = dict(
+                max_abs_err=err,
+                ms=graph_ms(lambda: hb.hvp_bucket(
+                    p, topo64.conn_cat32, Hd, topo64.csr_cat)),
+                plain_ms=graph_ms(lambda: hb.hvp_bucket_plain(
+                    p, topo64.conn_cat32, Hd, topo64.csr_cat)),
+                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+                shape=f"H {tuple(Hd.shape)} ({h_read} values read), "
+                      f"p {tuple(p.shape)}")
+
+        # ---- C: the triangle-strain stack (d=9) and a random indefinite
+        # d=15 stack; compare rebuilt matrices (eigenvector signs are free)
+        Ht = hess64["EnergyTriangleStrain"].to(dtype).contiguous()
+        A15 = rng.normal(size=(4096, 15, 15))
+        H15 = torch.as_tensor(0.5 * (A15 + A15.transpose(0, 2, 1)), dtype=dtype,
+                              device=DEVICE)
+        # rebuilt matrices, per matrix: |kernel - twin| <= 2000 eps max|H_e|
+        # (the same rotations; only the rounding of atan2/cos/sin and of
+        # the rebuild's sums differ)
+        for label, Hc in (("pd_project[d9]", Ht), ("pd_project[d15]", H15)):
+            mask = torch.as_tensor(rng.random(Hc.shape[0]) < 0.9, device=DEVICE)
+            tol = 2000.0 * torch.finfo(dtype).eps * Hc.abs().amax(dim=(1, 2),
+                                                                keepdim=True)
+            for m in (None, mask):
+                for mirroring in (False, True):
+                    out, ch = pd.pd_project(Hc, 1e-10, mirroring, m, 8)
+                    ref, ch_ref = pd.pd_project_plain(Hc, 1e-10, mirroring, m, 8)
+                    torch.cuda.synchronize()
+                    err = check(f"{label}{'' if m is None else '+mask'}"
+                                f"{'+mirror' if mirroring else ''}", dtype,
+                                (out - ref).abs(), tol + torch.finfo(dtype).tiny)
+                    if main and label == "pd_project[d9]" and m is None \
+                            and not mirroring:
+                        err_main = err
+            if main and label == "pd_project[d9]":
+                E_, d_, _ = Ht.shape
+                n_rounds = d_ if d_ % 2 else d_ - 1
+                flops = E_ * (8 * n_rounds * 9 * d_ * d_ + 3 * d_ ** 3)
+                out, ch = pd.pd_project(Ht, 1e-10, False, None, 8)
+                bnd = bound_ms(nbytes(Ht, out, ch), flops, dtype)
+                results["pd_project"] = dict(
+                    max_abs_err=err_main,
+                    ms=graph_ms(lambda: pd.pd_project(Ht, 1e-10, False, None, 8)),
+                    # the twin copies its schedule from the host each call and
+                    # eigh checks its result on the host: neither can be
+                    # captured, so both are timed from host launches
+                    plain_ms=events_ms(
+                        lambda: pd.pd_project_plain(Ht, 1e-10, False, None, 8), iters=5),
+                    library_ms=events_ms(lambda: torch.linalg.eigh(Ht), iters=5),
+                    bound_ms=bnd[0], bound_by=bnd[1],
+                    shape=f"H {tuple(Ht.shape)}, 8 sweeps")
+
+        # ---- D: the real diagonal blocks plus exactly singular ones ----
+        D = sr.segment_reduce_plain(sites["diag"][1], topo64.csr_cat).reshape(-1, 3, 3)
+        D = D.clone()
+        D[::97] = 0.0
+        D[1::101] = torch.ones(3, 3, dtype=dtype, device=DEVICE)
+        Di = block3.block3_inverse(D)
+        Di_ref = block3.block3_inverse_plain(D)
+        torch.cuda.synchronize()
+        # per block: 64 eps * cond_inf(D_b) * max|D_b^-1| (the same cofactor
+        # formulas; contraction into FMAs may differ)
+        cond = D.abs().sum(-1).amax(-1) * Di_ref.abs().sum(-1).amax(-1)
+        tol_b = (64.0 * torch.finfo(dtype).eps * cond
+                 * Di_ref.abs().amax(dim=(1, 2)))[:, None, None] \
+            + torch.finfo(dtype).tiny
+        err_inv = check("block3_inverse", dtype, (Di - Di_ref).abs(), tol_b)
+        r = torch.as_tensor(rng.normal(size=(D.shape[0], 3)), dtype=dtype,
+                            device=DEVICE)
+        z = block3.block3_apply(Di_ref, r)
+        z_ref = block3.block3_apply_plain(Di_ref, r)
+        z_abs = block3.block3_apply_plain(Di_ref.abs(), r.abs())
+        torch.cuda.synchronize()
+        err = check("block3_apply", dtype, (z - z_ref).abs(),
+                    sum_tol(z_abs, dtype, k=8.0))
+        if main:
+            bnd = bound_ms(nbytes(D, Di), 40.0 * D.shape[0], dtype)
+            results["block3_inverse"] = dict(
+                max_abs_err=err_inv,
+                ms=graph_ms(lambda: block3.block3_inverse(D)),
+                plain_ms=graph_ms(lambda: block3.block3_inverse_plain(D)),
+                library_ms=graph_ms(lambda: torch.linalg.inv_ex(D)),
+                bound_ms=bnd[0], bound_by=bnd[1], shape=f"D {tuple(D.shape)}")
+            bnd = bound_ms(nbytes(Di, r, z), 15.0 * D.shape[0], dtype)
+            results["block3_apply"] = dict(
+                max_abs_err=err,
+                ms=graph_ms(lambda: block3.block3_apply(Di_ref, r)),
+                plain_ms=graph_ms(lambda: block3.block3_apply_plain(Di_ref, r)),
+                library_ms=graph_ms(lambda: torch.bmm(Di_ref, r[:, :, None])),
+                bound_ms=bnd[0], bound_by=bnd[1], shape=f"Dinv {tuple(Di.shape)}")
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the port's main path
+# ---------------------------------------------------------------------------
+def run_steps(sim, n_steps):
+    from stark_tpu_torch.ops import build
+
+    logger = sim.get_logger()
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ok = sim.run_one_time_step()
+        if not ok:
+            raise AssertionError("a time step failed")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(build.launches)
+    newton = int(logger.get_stats("newton_iterations").total)
+    cg = int(logger.get_stats("cg_iterations").total)
+    syncs = int(logger.get_stats("host_syncs").total)
+    steps = sim.stark.current_time_step
+    log(f"  steps={steps} newton={newton} cg={cg} wall={wall:.3f}s "
+        f"ms/newton={1e3 * wall / max(newton, 1):.2f} "
+        f"host_syncs/step={syncs / max(steps, 1):.1f}")
+    return launches, dict(steps=steps, newton=newton, cg=cg, wall_s=wall,
+                          ms_per_newton=1e3 * wall / max(newton, 1),
+                          host_syncs_per_step=syncs / max(steps, 1))
+
+
+def load_golden(path):
+    steps = []
+    with gzip.open(path, "rt") as f:
+        cur = None
+        for line in f:
+            line = line.strip()
+            if not line:
+                continue
+            if line.startswith("step"):
+                cur = []
+                steps.append(cur)
+            else:
+                cur.append([float(v) for v in line.split()])
+    return [np.asarray(s) for s in steps]
+
+
+KERNELS = [
+    # name, source, the TPU-shaped JAX function it replaces
+    ("segment_reduce[egh]", "stark_tpu_torch/csrc/segment_reduce.cu",
+     "stark_tpu/solver/assembly.py:50"),
+    ("segment_reduce[diag]", "stark_tpu_torch/csrc/segment_reduce.cu",
+     "stark_tpu/solver/assembly.py:574"),
+    ("segment_reduce[dense]", "stark_tpu_torch/csrc/segment_reduce.cu",
+     "stark_tpu/solver/assembly.py:696"),
+    ("hvp_bucket", "stark_tpu_torch/csrc/hvp_bucket.cu",
+     "stark_tpu/solver/assembly.py:559"),
+    ("pd_project", "stark_tpu_torch/csrc/pd_project.cu",
+     "stark_tpu/solver/project.py:53"),
+    ("block3_inverse", "stark_tpu_torch/csrc/block3.cu",
+     "stark_tpu/solver/assembly.py:876"),
+    ("block3_apply", "stark_tpu_torch/csrc/block3.cu",
+     "stark_tpu/solver/assembly.py:906"),
+]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from stark_tpu_torch.ops import build
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    t_start = time.perf_counter()
+
+    # ---- 1 ----
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+
+    # ---- 2 ----
+    build.library()
+    log(f"kernels built in {build.build_info['seconds']:.1f}s "
+        f"(fresh build: {build.build_info['built']}) -> {build.build_info['path']}")
+    with open(os.path.join(OUT_DIR, "ptxas.txt"), "w") as f:
+        for src, text in build.build_info["ptxas"].items():
+            f.write(f"==== {src}\n{text}\n")
+
+    # ---- 3 ----
+    size64 = 0.4
+    sim64, h64, P = make_cloth(N_MAIN, size64, "float32")
+    pin_top_corners(sim64, h64, P, size64)
+    sim32, h32, P32 = make_cloth(N_DENSE, size64, "float32")
+    pin_top_corners(sim32, h32, P32, size64)
+    _nm64, ev64, _d64, topo64, hess64, H64 = frozen_inputs(sim64, False, 1)
+    _nm32, ev32, _d32, topo32, _h32, H32 = frozen_inputs(sim32, True, 2)
+    log(f"64x64: {ev64.n_blocks} blocks, H_cat {tuple(H64.shape)}; "
+        f"32x32: {ev32.n_blocks} blocks, dense n={3 * (ev32.n_blocks + 1)}")
+    log("phase 3: kernels against their twins")
+    results = kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32)
+
+    # ---- 4: the main path ----
+    log("phase 4: 64x64 hanging cloth, float32, cuda")
+    n_steps = MAIN_STEPS
+    x_rest = h64.point_set.get_positions().copy()
+    pins = np.asarray(sim64.deformables.prescribed_positions._nodes)
+    launches64, run64 = run_steps(sim64, n_steps)
+    x = h64.point_set.get_positions()
+    free = np.setdiff1d(np.arange(len(x)), pins)
+    pin_dev = float(np.max(np.linalg.norm(x[pins] - x_rest[pins], axis=1)))
+    log(f"  mean free z={np.mean(x[free, 2]):.4f} pin deviation={pin_dev:.2e} "
+        f"launches={launches64}")
+    assert np.all(np.isfinite(x)), "non-finite positions"
+    assert np.mean(x[free, 2]) < 0.0, "the cloth does not sag"
+    assert pin_dev < 2e-3, f"pins moved by {pin_dev}"
+    for k in ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket",
+              "pd_project", "block3_inverse", "block3_apply"):
+        assert launches64.get(k, 0) > 0, f"{k} never launched on the main path"
+
+    # ---- 5: the dense Newton-Schulz branch ----
+    log("phase 5: 32x32 hanging cloth, float32, cuda (dense preconditioner)")
+    launches32, run32 = run_steps(sim32, DENSE_STEPS)
+    ns_q = sim32.get_logger().series["ns_q"]
+    log(f"  ns_q={ns_q} launches={launches32}")
+    assert launches32.get("segment_reduce[dense]", 0) > 0, \
+        "the dense-assembly site never launched"
+    assert all(np.isfinite(ns_q)), "ns_q is not finite"
+    assert np.all(np.isfinite(h32.point_set.get_positions()))
+
+    # ---- 6: the golden trajectory ----
+    log("phase 6: hanging_cloth_16 golden, float64, cuda")
+    golden = load_golden(GOLDEN)
+    simg, hg, Pg = make_cloth(16, 1.0, "float64",
+                              max_time_step_size=1.0 / 30.0,
+                              use_adaptive_time_step=False)
+    pin_top_corners(simg, hg, Pg, 1.0, stiffness=1e6)
+    worst = 0.0
+    t0 = time.perf_counter()
+    for step in range(len(golden)):
+        assert simg.run_one_time_step(), f"golden step {step} failed"
+        dev = float(np.max(np.linalg.norm(hg.point_set.get_positions()
+                                          - golden[step], axis=1)))
+        worst = max(worst, dev)
+    log(f"  {len(golden)} steps in {time.perf_counter() - t0:.2f}s, "
+        f"max vertex deviation {worst:.3e} (bound 2e-3)")
+    assert worst < 2e-3, f"golden deviation {worst}"
+
+    # ---- 7 ----
+    kernels = []
+    for name, source, replaces in KERNELS:
+        r = results[name]
+        launches = (launches32 if name == "segment_reduce[dense]"
+                    else launches64).get(name, 0)
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches,
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"]})
+    summary = {"card": card, "runs": {"cloth64_f32": run64,
+                                      "cloth32_f32": run32},
+               "golden16_f64_max_dev": worst, "kernels": kernels,
+               "build_s": build.build_info["seconds"],
+               "total_s": time.perf_counter() - t_start}
+    with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    log(f"total {time.perf_counter() - t_start:.1f}s")
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,316 @@
+"""Vmapped energy/gradient/Hessian evaluation and matrix-free operators.
+
+Port of the parts of `stark_tpu/solver/assembly.py` that the fused solve
+runs without contact:
+
+  * per-element energies, gradients and dense Hessians from `torch.func`
+    (`vmap` over `grad_and_value` / `hessian`, mirroring `jax.hessian`),
+  * every per-block reduction through kernel A (`ops.segment_reduce`), an
+    ordered segmented sum over a CSR built once per topology (`Topology`),
+  * the CG Hessian-vector product through kernel B (`ops.hvp_bucket`),
+  * the 3x3 block preconditioner through kernel D (`ops.block3`),
+  * the dense Newton-Schulz preconditioner for small scenes, assembled
+    through kernel A keyed by block-pair id; its GEMMs stay `torch.matmul`
+    in full f32 (TF32 off), as the JAX package leaves them to XLA.
+
+`data` is a dict {family_name: {'conn': (E, arity) int64, 'rows': {...,
+'active': (E,)}}} of tensors on one device.
+
+Bucket width: the single-bucket layout pads every family to the largest
+arity of the REGISTERED families. The port registers no contact families yet,
+so its bucket is 4 (12x12 element blocks) where the JAX package, which always
+registers the arity-5 contact families, uses 5 (15x15). Values agree;
+layouts differ.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional
+
+import torch
+import torch.nn.functional as F
+from torch.func import grad_and_value, hessian, vmap
+
+from ..ops.block3 import block3_apply, block3_inverse
+from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
+from ..ops.segment_reduce import Csr, build_csr, segment_reduce
+from .potential import PotentialFamily
+
+# Total energies accumulate in f64 even when the element math runs f32: the
+# Armijo test compares energy DIFFERENCES of order beta*g.du, which f32
+# accumulation noise would otherwise drown.
+_ACC = torch.float64
+
+_DYN_PREFIX = ("contact_", "friction_")
+
+
+def _is_dyn(name: str) -> bool:
+    return name.startswith(_DYN_PREFIX)
+
+
+def _active_mask(rows):
+    return rows["active"] > 0.5
+
+
+@dataclass
+class Topology:
+    """Index structures frozen with the element tables (rebuilt only when a
+    table is replaced): the CSR of energy_grad_hess's payload rows, the
+    single-bucket connectivity and its CSR (diag_bucket and hvp_bucket
+    share it), and for the dense preconditioner the CSR of block-pair ids.
+    `tables` keeps the source tensors so a replaced table is detected by
+    identity."""
+    egh_csr: Csr
+    conn_cat: torch.Tensor      # (E_cat, b) int64, dummy id n_blocks
+    conn_cat32: torch.Tensor    # the same as int32 for the kernels
+    csr_cat: Csr
+    pid_csr: Optional[Csr]
+    tables: tuple
+
+
+class Evaluators:
+    """Evaluation closures for a fixed family set and block count (the
+    counterpart of the object `stark_tpu`'s make_evaluators returns).
+
+    `host_syncs` counts the device->host reads the solve makes through
+    `to_host` (every loop exit test is one)."""
+
+    def __init__(self, families: List[PotentialFamily], n_blocks: int):
+        self.fam_by_name = {f.name: f for f in families}
+        self.n_blocks = n_blocks
+        self.max_arity = max((f.arity for f in families), default=1)
+        self.host_syncs = 0
+
+    # ------------------------------------------------------------------
+    def to_host(self, x: torch.Tensor):
+        """Python value of a 0-d tensor (one device->host sync)."""
+        self.host_syncs += 1
+        return x.item()
+
+    @staticmethod
+    def _gather(u, conn):
+        # u: (n_blocks, 3); conn: (E, arity) -> (E, arity, 3)
+        return u[conn]
+
+    # ------------------------------------------------------------------
+    # topology
+    # ------------------------------------------------------------------
+    def topology(self, data, dense: bool) -> Topology:
+        n = self.n_blocks
+        egh_rows = torch.cat([fd["conn"].reshape(-1) for fd in data.values()])
+        conn_cat = self.cat_static_conn(data)
+        pid_csr = None
+        if dense:
+            N1 = n + 1
+            cl = torch.clamp_max(conn_cat, n)
+            pid = cl[:, :, None] * N1 + cl[:, None, :]
+            dummy = (cl[:, :, None] >= n) | (cl[:, None, :] >= n)
+            pid = torch.where(dummy, torch.full_like(pid, N1 * N1), pid)
+            pid_csr = build_csr(pid.reshape(-1), N1 * N1)
+        tables = tuple((fd["conn"], fd["rows"]["active"]) for fd in data.values())
+        return Topology(egh_csr=build_csr(egh_rows, n), conn_cat=conn_cat,
+                        conn_cat32=conn_cat.to(torch.int32).contiguous(),
+                        csr_cat=build_csr(self.scatter_rows(conn_cat), n),
+                        pid_csr=pid_csr, tables=tables)
+
+    @staticmethod
+    def topology_matches(topo: Optional[Topology], data) -> bool:
+        if topo is None or len(topo.tables) != len(data):
+            return False
+        return all(c is fd["conn"] and a is fd["rows"]["active"]
+                   for (c, a), fd in zip(topo.tables, data.values()))
+
+    # ------------------------------------------------------------------
+    # energy / gradient / Hessian
+    # ------------------------------------------------------------------
+    def energy(self, u, data, glob):
+        E = torch.zeros((), dtype=_ACC, device=u.device)
+        for name, fd in data.items():
+            fam = self.fam_by_name[name]
+            u_e = self._gather(u, fd["conn"])
+            e = vmap(fam.energy_fn, in_dims=(0, 0, None))(u_e, fd["rows"], glob)
+            mask = _active_mask(fd["rows"])
+            E = E + torch.sum(torch.where(mask, e, torch.zeros_like(e)).to(_ACC))
+        return E
+
+    def energy_grad_hess(self, u, data, glob, topo: Topology):
+        """Returns (E, aux, grad, {name: H (E, arity*3, arity*3)}).
+
+        aux carries the rounding-noise floors the convergence tests use:
+          * aux['e_nsq']: sum of per-element energies squared;
+          * aux['g_nsq']: max over (block, component) of the sum of squared
+            per-element gradient contributions;
+          * aux['hsum']: per-block |H| row sums (backward-error floor).
+        The per-block reductions run as ONE (R, 9) payload [g, g^2, |H| row
+        sum] through kernel A."""
+        E = torch.zeros((), dtype=_ACC, device=u.device)
+        E_nsq = torch.zeros((), dtype=_ACC, device=u.device)
+        hess: Dict[str, torch.Tensor] = {}
+        payload_parts = []
+        for name, fd in data.items():
+            fam = self.fam_by_name[name]
+            a = fam.arity
+            u_e = self._gather(u, fd["conn"])
+            g_e, e = vmap(grad_and_value(fam.energy_fn), in_dims=(0, 0, None))(
+                u_e, fd["rows"], glob)
+            H_e = vmap(hessian(fam.energy_fn), in_dims=(0, 0, None))(
+                u_e, fd["rows"], glob)
+            mask = _active_mask(fd["rows"])
+            e_m = torch.where(mask, e, torch.zeros_like(e)).to(_ACC)
+            E = E + torch.sum(e_m)
+            E_nsq = E_nsq + torch.sum(e_m ** 2)
+            g_e = torch.where(mask[:, None, None], g_e, torch.zeros_like(g_e))
+            g_flat = g_e.reshape(-1, 3)
+            H_e = H_e.reshape(H_e.shape[0], a * 3, a * 3)
+            H_e = torch.where(mask[:, None, None], H_e, torch.zeros_like(H_e))
+            # enforce exact symmetry (autodiff roundoff)
+            H_e = 0.5 * (H_e + H_e.transpose(1, 2))
+            hess[name] = H_e
+            hrow = torch.sum(torch.abs(H_e), dim=2).reshape(-1, 3)
+            payload_parts.append(torch.cat([g_flat, g_flat * g_flat, hrow], dim=-1))
+        payload = torch.cat(payload_parts).contiguous()
+        acc = segment_reduce(payload, topo.egh_csr, "egh")
+        grad = acc[:, :3]
+        gsq = acc[:, 3:6]
+        hsum = acc[:, 6:9]
+        aux = {"e_nsq": E_nsq, "g_nsq": torch.max(gsq).to(_ACC), "hsum": hsum}
+        return E, aux, grad, hess
+
+    # ------------------------------------------------------------------
+    # single-bucket layout
+    # ------------------------------------------------------------------
+    def split_dyn(self, names):
+        """(static_names, dynamic_names) in canonical (sorted) order."""
+        names = sorted(names)
+        return ([n for n in names if not _is_dyn(n)],
+                [n for n in names if _is_dyn(n)])
+
+    def _pad_conn_b(self, fd, b):
+        conn = fd["conn"]
+        act = fd["rows"]["active"] > 0.5
+        conn = torch.where(act[:, None], conn, torch.full_like(conn, self.n_blocks))
+        a = conn.shape[1]
+        if a < b:
+            conn = F.pad(conn, (0, b - a), value=self.n_blocks)
+        return conn
+
+    @staticmethod
+    def _pad_h(H, d):
+        if H.shape[-1] < d:
+            p = d - H.shape[-1]
+            H = F.pad(H, (0, p, 0, p))
+        return H
+
+    def cat_static_conn(self, data):
+        """Concatenated static-family connectivity (canonical sorted order,
+        padded to the bucket arity, inactive rows -> dummy block)."""
+        b = self.max_arity
+        parts = [self._pad_conn_b(data[n], b) for n in sorted(data.keys())
+                 if not _is_dyn(n)]
+        return torch.cat(parts, dim=0)
+
+    def cat_with_live(self, conn_static, hess_stat, conn_live=None, H_live=None):
+        """(conn_cat, H_cat) single-bucket layout: static families in
+        canonical order followed by the live dynamic rows (none without
+        contact: the empty pool is skipped)."""
+        d = 3 * self.max_arity
+        h_parts = [self._pad_h(hess_stat[n], d) for n in sorted(hess_stat.keys())]
+        conn = conn_static
+        if H_live is not None and H_live.shape[0]:
+            h_parts.append(H_live)
+            conn = torch.cat([conn_static, conn_live], dim=0)
+        return conn, torch.cat(h_parts, dim=0).contiguous()
+
+    def scatter_rows(self, conn_cat):
+        """Flat block-row vector of the single-bucket layout."""
+        return conn_cat.reshape(-1)
+
+    def hvp_bucket(self, p, H_cat, topo: Topology):
+        """q = H p over the single-bucket layout (kernel B)."""
+        return _hvp_kernel(p.contiguous(), topo.conn_cat32, H_cat, topo.csr_cat)
+
+    def diag_bucket(self, H_cat, topo: Topology):
+        """3x3 diagonal blocks over the single-bucket layout (kernel A)."""
+        b = self.max_arity
+        Hb = H_cat.reshape(H_cat.shape[0], b, 3, b, 3)
+        d_e = torch.einsum("eiaib->eiab", Hb).reshape(-1, 9).contiguous()
+        return segment_reduce(d_e, topo.csr_cat, "diag").reshape(-1, 3, 3)
+
+    # ------------------------------------------------------------------
+    # dense Newton-Schulz preconditioner (small scenes)
+    # ------------------------------------------------------------------
+    def assemble_dense_scatter(self, H_cat, topo: Topology):
+        """Dense permuted-layout (component-major) global Hessian, summed
+        per block pair by kernel A. The dummy block carries an identity
+        diagonal so the scaled matrix stays SPD."""
+        b = self.max_arity
+        N1 = self.n_blocks + 1
+        E_cat = H_cat.shape[0]
+        vals = H_cat.reshape(E_cat, b, 3, b, 3).permute(0, 1, 3, 2, 4)
+        vals = vals.reshape(-1, 9).contiguous()
+        D4 = segment_reduce(vals, topo.pid_csr, "dense")
+        D4[N1 * N1 - 1] = torch.eye(3, dtype=H_cat.dtype,
+                                    device=H_cat.device).reshape(9)
+        return D4.reshape(N1, N1, 3, 3).permute(2, 0, 3, 1).reshape(3 * N1, 3 * N1)
+
+    def ns_refresh(self, M_prev, H_cat, topo: Topology, warm_sweeps: int = 1,
+                   cold_sweeps: int = 34):
+        """Newton-Schulz tracking of the dense-inverse preconditioner:
+        M' = M + M(I - Hs M) on the Jacobi-SCALED assembled Hessian, warm
+        from the carried M; a quality probe falls back to the cold start
+        Ms0 = I/||Hs||_inf with `cold_sweeps` doublings when the warm seed
+        has diverged. Returns (M unscaled, q = max|I - Hs Ms| of the last
+        sweep, was_cold). Full f32 GEMMs: the caller keeps TF32 off."""
+        Hp = self.assemble_dense_scatter(H_cat, topo)
+        n = Hp.shape[0]
+        dg = torch.diagonal(Hp)
+        ok_d = dg > 1e-30
+        s = torch.where(ok_d, torch.rsqrt(torch.clamp_min(dg, 1e-30)),
+                        torch.ones_like(dg))
+        Hs = Hp * s[:, None] * s[None, :]
+        Hs = Hs + torch.diag(torch.where(ok_d, 0.0, 1.0).to(Hp.dtype))
+        eye = torch.eye(n, dtype=Hp.dtype, device=Hp.device)
+
+        def sweep(Ms):
+            R = eye - torch.matmul(Hs, Ms)
+            return Ms + torch.matmul(Ms, R), torch.max(torch.abs(R))
+
+        s_safe = torch.clamp_min(s, 1e-30)
+        Ms = M_prev / s_safe[:, None] / s_safe[None, :]
+        for _ in range(warm_sweeps):
+            Ms, q = sweep(Ms)
+        bad = torch.logical_not(torch.isfinite(q)) | (q > 0.9)
+        if self.to_host(bad):
+            norm_inf = torch.max(torch.sum(torch.abs(Hs), dim=1))
+            Ms = eye / torch.clamp_min(norm_inf, 1.0)
+            for _ in range(cold_sweeps):
+                Ms, q = sweep(Ms)
+        M = Ms * s[:, None] * s[None, :]
+        finite = torch.isfinite(q)
+        M = torch.where(finite, M, torch.diag(s * s))
+        q = torch.where(finite, q, torch.full_like(q, 1e9))
+        return M, q, bad
+
+    def apply_dense_perm(self, M, r):
+        """q = M r with M in the permuted (component-major) layout and r in
+        the (n_blocks, 3) block layout."""
+        N1 = self.n_blocks + 1
+        r_pad = torch.cat([r, torch.zeros((1, 3), dtype=r.dtype, device=r.device)])
+        v = r_pad.T.reshape(-1)
+        q = M @ v
+        return q.reshape(3, N1).T[:self.n_blocks]
+
+
+def make_evaluators(families: List[PotentialFamily], n_blocks: int) -> Evaluators:
+    return Evaluators(families, n_blocks)
+
+
+def precondition_inverse(D, eps: float = 1e-30):
+    """Batched inverse of the 3x3 diagonal blocks with identity fallback for
+    empty/singular blocks (kernel D)."""
+    return block3_inverse(D.contiguous(), eps)
+
+
+def apply_preconditioner(Dinv, r):
+    # r: (n_blocks, 3)
+    return block3_apply(Dinv, r.contiguous())

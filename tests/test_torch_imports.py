@@ -1,0 +1,52 @@
+"""The port stands alone: no file of `stark_tpu_torch/` and not
+`chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`."""
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "stark_tpu")
+
+
+def _port_files():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _dirs, files in os.walk(os.path.join(ROOT, "stark_tpu_torch")):
+        out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    roots = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots += [a.name.split(".")[0] for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.append(node.module.split(".")[0])
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", None) == "__import__":
+            if node.args and isinstance(node.args[0], ast.Constant):
+                roots.append(str(node.args[0].value).split(".")[0])
+    return roots
+
+
+def test_port_has_files():
+    files = _port_files()
+    assert len(files) > 20
+    assert any(f.endswith("solver/fused.py") for f in files)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_imports(path):
+    bad = [r for r in _imported_roots(path) if r in FORBIDDEN]
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_import_module_names_are_not_built_dynamically():
+    """`importlib.import_module` with a JAX name would dodge the scan."""
+    for path in _port_files():
+        src = open(path).read()
+        for name in FORBIDDEN:
+            assert f'import_module("{name}' not in src
+            assert f"import_module('{name}" not in src
