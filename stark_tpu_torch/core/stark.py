@@ -95,11 +95,12 @@ class Stark:
         self._init_hooks.append(f)
 
     def connect(self, *, n_blocks_fn, get_dofs, set_dofs, get_glob,
-                get_static_data, prime_host_dofs=None):
+                get_static_data, prime_host_dofs=None, get_engine=None):
         self._connector = dict(n_blocks_fn=n_blocks_fn, get_dofs=get_dofs,
                                set_dofs=set_dofs, get_glob=get_glob,
                                get_static_data=get_static_data,
-                               prime_host_dofs=prime_host_dofs)
+                               prime_host_dofs=prime_host_dofs,
+                               get_engine=get_engine)
 
     # ------------------------------------------------------------------
     def run(self, duration: float = math.inf, callback: Optional[Callable[[], None]] = None) -> bool:
@@ -228,6 +229,7 @@ class Stark:
             device=self.device,
             prime_host_dofs=c.get("prime_host_dofs"),
             jacobi_sweeps=self.settings.device.jacobi_sweeps,
+            get_engine=c.get("get_engine"),
         )
         self._write_frame()
         self.callbacks.run_before_simulation()

@@ -6,15 +6,16 @@
 // (:574-589) and the scatter-add of `assemble_dense_scatter` (:696-719),
 // keyed there by block-pair id.
 //
-// Input is a CSR built once per topology (ops/segment_reduce.py build_csr):
-// `perm` lists the payload rows in a stable sort of their row ids (rows with
-// id >= n_seg dropped) and `offsets[s]..offsets[s+1]` is segment s. Thread
+// Input is a CSR (ops/segment_reduce.py build_csr): `perm` lists the payload
+// rows in a stable sort of their row ids (rows with id >= n_seg come last,
+// past offsets[n_seg], and are dropped) and `offsets[s]..offsets[s+1]` is
+// segment s. Thread
 // (s, w) sums payload[perm[k], w] over its segment IN CSR ORDER, from 0, so
 // the result is deterministic (no atomics: CUDA's index_add_ is not) and an
 // empty segment gives 0.
 //
 // Bound: bytes. Each launch reads the kept payload rows once (K*W values for
-// the K = len(perm) rows the CSR keeps; dropped rows are never read), the CSR
+// the K = offsets[n_seg] rows the CSR keeps; dropped rows are never read), the CSR
 // once, and writes n_seg*W values; it does one add per value read.
 // Design: one thread per output value keeps the loop trivially ordered;
 // neighbouring threads read neighbouring columns of the same payload row, so

@@ -17,3 +17,19 @@ static inline int stk_blocks(long long n, int threads) {
 }
 
 static inline int stk_launch_status() { return (int)cudaGetLastError(); }
+
+// Round-to-nearest arithmetic that nvcc may not contract into FMAs. A kernel
+// whose comparisons must decide as its plain twin decides (kernels F, G, H)
+// evaluates them with these, in the twin's operation order.
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float rn_fma(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double rn_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}

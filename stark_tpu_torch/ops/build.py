@@ -12,7 +12,7 @@ Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc or a card.
 
 `launches` counts kernel launches by kernel entry point (and, for the
-segmented reduce, by call site). Each wrapper adds one right after its
+segmented reduce and the compaction, by call site). Each wrapper adds one right after its
 kernel launched and nowhere else, so a run can show that the main path went
 through the kernels.
 """
@@ -45,6 +45,7 @@ build_info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _D = ctypes.c_double
 
 # (argtypes) of every exported entry point; each exists as _f32 and _f64
@@ -54,6 +55,15 @@ _SIGNATURES = {
     "stk_pd_project": [_P, _I, _I, _P, _I, _I, _D, _I, _P, _P, _P, _P],
     "stk_block3_inverse": [_P, _I, _D, _P, _P],
     "stk_block3_apply": [_P, _P, _I, _P, _P],
+    "stk_ball_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
+                      _P, _P],
+    "stk_pt_distance": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    "stk_ee_distance": [_P, _P, _P, _P, _I, _D, _P, _P, _P, _P, _P],
+    "stk_segment_triangle_any": [_P, _P, _P, _P, _P, _I, _P, _D, _P, _P, _P],
+}
+# entry points without a floating-point operand: one symbol, no suffix
+_UNTYPED = {
+    "stk_compact": [_P, _L, _I, _P, _P, _P, _P],
 }
 
 
@@ -154,6 +164,10 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name + suffix)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
+        for name, args in _UNTYPED.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
         info["path"] = lib_path
         build_info.clear()
         build_info.update(info)
@@ -161,8 +175,11 @@ def library() -> ctypes.CDLL:
         return _lib
 
 
-def entry(name: str, dtype: torch.dtype):
-    """The C entry point `name` for `dtype` (float32 or float64)."""
+def entry(name: str, dtype: Optional[torch.dtype] = None):
+    """The C entry point `name` for `dtype` (float32 or float64); None for
+    the entry points that take no floating-point operand."""
+    if dtype is None:
+        return getattr(library(), name)
     if dtype == torch.float32:
         return getattr(library(), name + "_f32")
     if dtype == torch.float64:

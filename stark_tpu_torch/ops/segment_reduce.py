@@ -5,8 +5,9 @@ Replaces the per-block reductions of stark_tpu/solver/assembly.py:
 `diag_bucket`'s segment_sum (:574-589) and `assemble_dense_scatter`'s
 scatter-add keyed by block-pair id (:696-719). JAX's one-hot matmul scatter
 is deterministic; CUDA's `index_add_` uses atomics and is not, so the port
-sorts the row ids ONCE per topology into a CSR (`build_csr`) and every
-launch sums each segment in CSR order.
+sorts the row ids into a CSR (`build_csr`, without a host sync, once per
+static topology and at every rebuild of the contact tables and the live
+pool) and every launch sums each segment in CSR order.
 """
 from __future__ import annotations
 
@@ -21,10 +22,11 @@ from . import build
 class Csr:
     """Rows of a payload grouped by segment id, in stable sort order.
 
-    perm (K,) int32: payload row indices, segment by segment; rows whose id
-    is >= n_seg (or < 0) are dropped. offsets (n_seg+1,) int32: segment s is
-    perm[offsets[s]:offsets[s+1]]. seg (K,) int64: the segment of each perm
-    entry (used by the plain twin). n_rows: the payload row count R."""
+    perm (R,) int32: payload row indices, segment by segment; rows whose id
+    is >= n_seg (or < 0) are dropped: they come last, past offsets[n_seg].
+    offsets (n_seg+1,) int32: segment s is perm[offsets[s]:offsets[s+1]].
+    seg (R,) int64: the segment of each perm entry, n_seg for a dropped row
+    (used by the plain twin). n_rows: the payload row count R."""
     perm: torch.Tensor
     offsets: torch.Tensor
     seg: torch.Tensor
@@ -33,18 +35,19 @@ class Csr:
 
 
 def build_csr(rows: torch.Tensor, n_seg: int) -> Csr:
-    """CSR of a flat (R,) row-id vector over n_seg segments (plain torch;
-    runs once per topology, never per iteration)."""
+    """CSR of a flat (R,) row-id vector over n_seg segments, built on the
+    device without a host sync (the contact pair tables and the live pool
+    change inside a solve): a stable sort of the ids, with the dropped rows
+    keyed n_seg so that they sort past offsets[n_seg]."""
     rows = rows.reshape(-1).to(torch.int64)
-    keep = torch.nonzero((rows >= 0) & (rows < n_seg)).reshape(-1)
-    srt = torch.sort(rows[keep], stable=True)
-    perm = keep[srt.indices]
-    counts = torch.bincount(srt.values, minlength=n_seg)
-    offsets = torch.zeros(n_seg + 1, dtype=torch.int64, device=rows.device)
-    offsets[1:] = torch.cumsum(counts, 0)
     if rows.numel() >= 2**31 or n_seg >= 2**31:
         raise ValueError("segment_reduce: index range exceeds int32")
-    return Csr(perm=perm.to(torch.int32).contiguous(),
+    key = torch.where((rows >= 0) & (rows < n_seg), rows,
+                      torch.full_like(rows, n_seg))
+    srt = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        srt.values, torch.arange(n_seg + 1, dtype=torch.int64, device=rows.device))
+    return Csr(perm=srt.indices.to(torch.int32).contiguous(),
                offsets=offsets.to(torch.int32).contiguous(),
                seg=srt.values.contiguous(), n_seg=int(n_seg),
                n_rows=int(rows.numel()))
@@ -52,10 +55,11 @@ def build_csr(rows: torch.Tensor, n_seg: int) -> Csr:
 
 def segment_reduce_plain(payload: torch.Tensor, csr: Csr) -> torch.Tensor:
     """Plain PyTorch twin: the same sums, in the same order on the CPU
-    (index_add_ over the sorted rows adds sequentially there)."""
-    out = torch.zeros((csr.n_seg, payload.shape[1]), dtype=payload.dtype,
+    (index_add_ over the sorted rows adds sequentially there). Dropped rows
+    land in an extra segment that is cut off."""
+    out = torch.zeros((csr.n_seg + 1, payload.shape[1]), dtype=payload.dtype,
                       device=payload.device)
-    return out.index_add_(0, csr.seg, payload[csr.perm.to(torch.int64)])
+    return out.index_add_(0, csr.seg, payload[csr.perm.to(torch.int64)])[:csr.n_seg]
 
 
 def segment_reduce(payload: torch.Tensor, csr: Csr, site: str) -> torch.Tensor:

@@ -1,16 +1,16 @@
 """Simulation facade: the single user entry point.
 
-Port of `stark_tpu/simulation.py` for the cloth path: it owns the core
-(`Stark`), the deformables and the presets, exposes run() /
-run_one_time_step() / add_time_event, and is the data manager: it freezes
-all static potential family tables onto the device at the first step,
-regenerates dirty families (parameter changes, animated targets, stiffness
-hardening), and wires the DOF connector into the core.
+Port of `stark_tpu/simulation.py`: it owns the core (`Stark`), the
+deformables, the rigid bodies, the interactions (frictionless IPC contact)
+and the presets, exposes run() / run_one_time_step() / add_time_event, and
+is the data manager: it freezes all static potential family tables onto the
+device at the first step, regenerates dirty families (parameter changes,
+animated targets, stiffness hardening), builds the contact engine, and wires
+the DOF connector into the core.
 
-Rigid bodies (ROADMAP Queue 1 P2) and interactions/contact (P3) are not
-ported yet: accessing them raises NotImplementedError, and so does
-`Settings.simulation.init_frictional_contact = True` (the default), rather
-than silently running without contact.
+A regenerated table keeps the tensors of its connectivity and active mask
+when their values did not change (an animated rigid target changes only its
+rows), so the solver's frozen static topology stays valid.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from .core.script import EventDrivenScript, EventInfo
 from .core.settings import Settings
 from .core.stark import Stark
 from .models.point_dynamics import PointDynamics
+from .models.rigid_dynamics import RigidBodyDynamics
 from .solver.dofs import DofLayout
 from .solver.potential import FamilyData, pad_family_data
 
@@ -43,20 +44,21 @@ def _to_device(fd: FamilyData, dtype: torch.dtype, device: torch.device) -> Dict
 
 class Simulation:
     def __init__(self, settings: Optional[Settings] = None):
-        settings = settings or Settings()
-        if settings.simulation.init_frictional_contact:
-            raise NotImplementedError(
-                "frictional contact is not ported yet (ROADMAP Queue 1 P3): "
-                "set settings.simulation.init_frictional_contact = False")
-        self.stark = Stark(settings)
+        self.stark = Stark(settings or Settings())
 
         self._dyn = PointDynamics(self.stark)
+        self._rb_dyn = RigidBodyDynamics(self.stark)
 
         from .models.deformables.deformables import Deformables
+        from .models.interactions.interactions import Interactions
+        from .models.rigidbodies.rigidbodies import RigidBodies
         from .presets.presets import Presets
 
         self.deformables = Deformables(self.stark, self._dyn)
-        self.presets = Presets(self.stark, self.deformables)
+        self.rigidbodies = RigidBodies(self.stark, self._rb_dyn)
+        self.interactions = Interactions(self.stark, self._dyn, self._rb_dyn)
+        self.presets = Presets(self.stark, self.deformables, self.rigidbodies,
+                               self.interactions)
 
         self.script = EventDrivenScript()
         self._layout: Optional[DofLayout] = None
@@ -71,17 +73,11 @@ class Simulation:
             get_glob=self._get_glob,
             get_static_data=self._get_static_data,
             prime_host_dofs=self._prime_host_dofs,
+            get_engine=lambda: self.interactions.contact.engine(),
         )
-
-    @property
-    def rigidbodies(self):
-        raise NotImplementedError("rigid bodies are not ported yet (ROADMAP Queue 1 P2)")
-
-    @property
-    def interactions(self):
-        raise NotImplementedError(
-            "interactions (contact, attachments) are not ported yet "
-            "(ROADMAP Queue 1 P3, P8)")
+        # host copies of each table's conn/active, to keep their tensors
+        # when a regenerated table did not change them
+        self._host_index: Dict[str, tuple] = {}
 
     # ------------------------------------------------------------------
     # public API (Simulation.h:13-43)
@@ -148,14 +144,29 @@ class Simulation:
     def _freeze(self):
         dtype, device = self.stark.dtype, self.stark.device
         self._dyn.freeze(dtype, device)
-        self._layout = DofLayout(self._dyn.n_points, 0)
+        self._rb_dyn.freeze(dtype, device)
+        self._layout = DofLayout(self._dyn.n_points, self._rb_dyn.n_bodies)
         self.stark.layout = self._layout
         pad = self.stark.settings.device.element_pad_multiple
         static = self.stark.global_potential.freeze_static_data(pad)
         for name, fd in static.items():
             self._capacities[name] = fd.conn.shape[0]
-            self._device_data[name] = _to_device(fd, dtype, device)
+            self._store(name, fd, dtype, device)
         self.stark.dirty_families.clear()
+        self.interactions.freeze(self._layout, dtype, device)
+
+    def _store(self, name, fd, dtype, device):
+        new = _to_device(fd, dtype, device)
+        conn = np.asarray(fd.conn)
+        act = np.asarray(fd.rows["active"])
+        old = self._host_index.get(name)
+        if old is not None and np.array_equal(old[0], conn) \
+                and np.array_equal(old[1], act):
+            prev = self._device_data[name]
+            new["conn"] = prev["conn"]
+            new["rows"]["active"] = prev["rows"]["active"]
+        self._host_index[name] = (conn.copy(), act.copy())
+        self._device_data[name] = new
 
     def _refresh_dirty(self):
         if not self.stark.dirty_families:
@@ -175,7 +186,7 @@ class Simulation:
                 continue
             fd = pad_family_data(fd, fam_by_name[name].arity, pad,
                                  capacity=self._capacities[name])
-            self._device_data[name] = _to_device(fd, dtype, device)
+            self._store(name, fd, dtype, device)
         self.stark.dirty_families.clear()
 
     def _get_static_data(self):
@@ -190,18 +201,40 @@ class Simulation:
         }
         if self._dyn.n_points > 0:
             glob.update(self._dyn.glob_entries())
+        if self._rb_dyn.n_bodies > 0:
+            glob.update(self._rb_dyn.glob_entries())
+            glob.update(self.rigidbodies.inertia.glob_entries())
+        glob.update(self.interactions.glob_entries())
         return glob
 
     # ------------------------------------------------------------------
     # DOF connector (GlobalPotential get/set_dofs analog)
     # ------------------------------------------------------------------
     def _get_dofs(self):
-        return self._dyn.v1
+        ns, nr = self._layout.n_soft, self._layout.n_rigid
+        parts = []
+        if ns > 0:
+            parts.append(self._dyn.v1)
+        if nr > 0:
+            parts.append(torch.stack([self._rb_dyn.v1, self._rb_dyn.w1],
+                                     dim=1).reshape(-1, 3))
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=0)
 
     def _set_dofs(self, u):
-        self._dyn.v1 = u
+        ns, nr = self._layout.n_soft, self._layout.n_rigid
+        if ns > 0:
+            self._dyn.v1 = u[:ns]
+        if nr > 0:
+            rw = u[ns:].reshape(nr, 2, 3)
+            self._rb_dyn.v1 = rw[:, 0]
+            self._rb_dyn.w1 = rw[:, 1]
 
     def _prime_host_dofs(self, u_np: np.ndarray):
         """Feed the host DOF mirrors from the solver's single per-step
         device->host transfer."""
-        self._dyn.prime_host_v1(u_np)
+        ns, nr = self._layout.n_soft, self._layout.n_rigid
+        if ns > 0:
+            self._dyn.prime_host_v1(u_np[:ns])
+        if nr > 0:
+            rw = u_np[ns:].reshape(nr, 2, 3)
+            self._rb_dyn.prime_host(rw[:, 0], rw[:, 1])

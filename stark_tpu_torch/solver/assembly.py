@@ -1,26 +1,32 @@
 """Vmapped energy/gradient/Hessian evaluation and matrix-free operators.
 
 Port of the parts of `stark_tpu/solver/assembly.py` that the fused solve
-runs without contact:
+runs:
 
   * per-element energies, gradients and dense Hessians from `torch.func`
     (`vmap` over `grad_and_value` / `hessian`, mirroring `jax.hessian`),
   * every per-block reduction through kernel A (`ops.segment_reduce`), an
-    ordered segmented sum over a CSR built once per topology (`Topology`),
+    ordered segmented sum over a CSR,
   * the CG Hessian-vector product through kernel B (`ops.hvp_bucket`),
   * the 3x3 block preconditioner through kernel D (`ops.block3`),
   * the dense Newton-Schulz preconditioner for small scenes, assembled
     through kernel A keyed by block-pair id; its GEMMs stay `torch.matmul`
-    in full f32 (TF32 off), as the JAX package leaves them to XLA.
+    in full f32 (TF32 off), as the JAX package leaves them to XLA,
+  * the live pool of the contact families (`live_select`): the rows with a
+    nonzero element Hessian at the current iterate, compacted through
+    kernel E.
 
 `data` is a dict {family_name: {'conn': (E, arity) int64, 'rows': {...,
 'active': (E,)}}} of tensors on one device.
 
-Bucket width: the single-bucket layout pads every family to the largest
-arity of the REGISTERED families. The port registers no contact families yet,
-so its bucket is 4 (12x12 element blocks) where the JAX package, which always
-registers the arity-5 contact families, uses 5 (15x15). Values agree;
-layouts differ.
+Two buckets. The static families are padded to the largest STATIC arity
+(4 for cloth and rigid bodies: 12x12 element blocks) and keep a CSR built
+once per static topology (`Topology`). The live contact rows form a second
+bucket padded to the largest contact arity (5: 15x15), whose CSR is rebuilt
+on the device every Newton iteration without a host sync (`LivePool`).
+Kernels A and B run once per bucket and the two partial results are added.
+The JAX package uses one 15x15 bucket for everything; values agree, layouts
+differ.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import torch.nn.functional as F
 from torch.func import grad_and_value, hessian, vmap
 
 from ..ops.block3 import block3_apply, block3_inverse
+from ..ops.compact import compact
 from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
 from ..ops.segment_reduce import Csr, build_csr, segment_reduce
 from .potential import PotentialFamily
@@ -68,6 +75,18 @@ class Topology:
     tables: tuple
 
 
+@dataclass
+class LivePool:
+    """The live contact rows of one Newton iteration, as the second bucket:
+    conn (pool_cap, b) int32 with dummy id n_blocks past the live count, the
+    (projected) element Hessians, the CSR of its block rows and, for the
+    dense preconditioner, of its block pairs; all built on the device."""
+    conn32: torch.Tensor
+    H: torch.Tensor
+    csr: Csr
+    pid_csr: Optional[Csr]
+
+
 class Evaluators:
     """Evaluation closures for a fixed family set and block count (the
     counterpart of the object `stark_tpu`'s make_evaluators returns).
@@ -78,7 +97,11 @@ class Evaluators:
     def __init__(self, families: List[PotentialFamily], n_blocks: int):
         self.fam_by_name = {f.name: f for f in families}
         self.n_blocks = n_blocks
-        self.max_arity = max((f.arity for f in families), default=1)
+        # bucket widths: static families, and the live contact pool
+        self.max_arity = max((f.arity for f in families if not _is_dyn(f.name)),
+                             default=1)
+        self.dyn_arity = max((f.arity for f in families if _is_dyn(f.name)),
+                             default=1)
         self.host_syncs = 0
 
     # ------------------------------------------------------------------
@@ -86,6 +109,11 @@ class Evaluators:
         """Python value of a 0-d tensor (one device->host sync)."""
         self.host_syncs += 1
         return x.item()
+
+    def to_host_vec(self, x: torch.Tensor):
+        """A small tensor on the host as numpy (one device->host sync)."""
+        self.host_syncs += 1
+        return x.cpu().numpy()
 
     @staticmethod
     def _gather(u, conn):
@@ -95,19 +123,28 @@ class Evaluators:
     # ------------------------------------------------------------------
     # topology
     # ------------------------------------------------------------------
-    def topology(self, data, dense: bool) -> Topology:
+    def _pair_ids(self, conn):
+        """Flat block-pair ids of a bucket's connectivity for the dense
+        assembly; pairs with a dummy block get the out-of-range id N1^2."""
         n = self.n_blocks
-        egh_rows = torch.cat([fd["conn"].reshape(-1) for fd in data.values()])
-        conn_cat = self.cat_static_conn(data)
+        N1 = n + 1
+        cl = torch.clamp_max(conn.to(torch.int64), n)
+        pid = cl[:, :, None] * N1 + cl[:, None, :]
+        dummy = (cl[:, :, None] >= n) | (cl[:, None, :] >= n)
+        return torch.where(dummy, torch.full_like(pid, N1 * N1), pid).reshape(-1)
+
+    def topology(self, data, dense: bool) -> Topology:
+        """Index structures of the static tables (dynamic families are
+        left out: their rows live in the pool)."""
+        n = self.n_blocks
+        static = {k: v for k, v in data.items() if not _is_dyn(k)}
+        egh_rows = torch.cat([fd["conn"].reshape(-1) for fd in static.values()])
+        conn_cat = self.cat_static_conn(static)
         pid_csr = None
         if dense:
             N1 = n + 1
-            cl = torch.clamp_max(conn_cat, n)
-            pid = cl[:, :, None] * N1 + cl[:, None, :]
-            dummy = (cl[:, :, None] >= n) | (cl[:, None, :] >= n)
-            pid = torch.where(dummy, torch.full_like(pid, N1 * N1), pid)
-            pid_csr = build_csr(pid.reshape(-1), N1 * N1)
-        tables = tuple((fd["conn"], fd["rows"]["active"]) for fd in data.values())
+            pid_csr = build_csr(self._pair_ids(conn_cat), N1 * N1)
+        tables = tuple((fd["conn"], fd["rows"]["active"]) for fd in static.values())
         return Topology(egh_csr=build_csr(egh_rows, n), conn_cat=conn_cat,
                         conn_cat32=conn_cat.to(torch.int32).contiguous(),
                         csr_cat=build_csr(self.scatter_rows(conn_cat), n),
@@ -115,10 +152,18 @@ class Evaluators:
 
     @staticmethod
     def topology_matches(topo: Optional[Topology], data) -> bool:
-        if topo is None or len(topo.tables) != len(data):
+        static = [fd for k, fd in data.items() if not _is_dyn(k)]
+        if topo is None or len(topo.tables) != len(static):
             return False
         return all(c is fd["conn"] and a is fd["rows"]["active"]
-                   for (c, a), fd in zip(topo.tables, data.values()))
+                   for (c, a), fd in zip(topo.tables, static))
+
+    def egh_csr(self, data) -> Csr:
+        """CSR of energy_grad_hess's payload rows over every table in
+        `data` (in its order), built on the device without a host sync: the
+        contact tables change at every pair-shell rebuild."""
+        rows = torch.cat([fd["conn"].reshape(-1) for fd in data.values()])
+        return build_csr(rows, self.n_blocks)
 
     # ------------------------------------------------------------------
     # energy / gradient / Hessian
@@ -133,7 +178,8 @@ class Evaluators:
             E = E + torch.sum(torch.where(mask, e, torch.zeros_like(e)).to(_ACC))
         return E
 
-    def energy_grad_hess(self, u, data, glob, topo: Topology):
+    def energy_grad_hess(self, u, data, glob, topo: Topology,
+                         egh_csr: Optional[Csr] = None):
         """Returns (E, aux, grad, {name: H (E, arity*3, arity*3)}).
 
         aux carries the rounding-noise floors the convergence tests use:
@@ -142,7 +188,8 @@ class Evaluators:
             per-element gradient contributions;
           * aux['hsum']: per-block |H| row sums (backward-error floor).
         The per-block reductions run as ONE (R, 9) payload [g, g^2, |H| row
-        sum] through kernel A."""
+        sum] through kernel A, over `egh_csr` when given (tables that include
+        contact families) else the static topology's CSR."""
         E = torch.zeros((), dtype=_ACC, device=u.device)
         E_nsq = torch.zeros((), dtype=_ACC, device=u.device)
         hess: Dict[str, torch.Tensor] = {}
@@ -169,7 +216,8 @@ class Evaluators:
             hrow = torch.sum(torch.abs(H_e), dim=2).reshape(-1, 3)
             payload_parts.append(torch.cat([g_flat, g_flat * g_flat, hrow], dim=-1))
         payload = torch.cat(payload_parts).contiguous()
-        acc = segment_reduce(payload, topo.egh_csr, "egh")
+        acc = segment_reduce(payload, egh_csr if egh_csr is not None
+                             else topo.egh_csr, "egh")
         grad = acc[:, :3]
         gsq = acc[:, 3:6]
         hsum = acc[:, 6:9]
@@ -209,59 +257,112 @@ class Evaluators:
                  if not _is_dyn(n)]
         return torch.cat(parts, dim=0)
 
-    def cat_with_live(self, conn_static, hess_stat, conn_live=None, H_live=None):
-        """(conn_cat, H_cat) single-bucket layout: static families in
-        canonical order followed by the live dynamic rows (none without
-        contact: the empty pool is skipped)."""
+    def cat_with_live(self, conn_static, hess_stat):
+        """(conn_cat, H_cat) of the static bucket: the static families in
+        canonical order (the live rows form the second bucket, LivePool)."""
         d = 3 * self.max_arity
         h_parts = [self._pad_h(hess_stat[n], d) for n in sorted(hess_stat.keys())]
-        conn = conn_static
-        if H_live is not None and H_live.shape[0]:
-            h_parts.append(H_live)
-            conn = torch.cat([conn_static, conn_live], dim=0)
-        return conn, torch.cat(h_parts, dim=0).contiguous()
+        return conn_static, torch.cat(h_parts, dim=0).contiguous()
+
+    def dyn_conn_cat(self, data):
+        """Concatenated dynamic-family connectivity padded to the pool's
+        arity, inactive rows routed to the dummy block (canonical order)."""
+        b = self.dyn_arity
+        parts = [self._pad_conn_b(data[n], b) for n in sorted(data.keys())
+                 if _is_dyn(n)]
+        return torch.cat(parts, dim=0) if parts else None
+
+    def dyn_hess_cat(self, hess):
+        """Dynamic-family element Hessians zero-padded to the pool's size,
+        in dyn_conn_cat's order."""
+        d = 3 * self.dyn_arity
+        parts = [self._pad_h(hess[n], d) for n in sorted(hess.keys()) if _is_dyn(n)]
+        return torch.cat(parts, dim=0) if parts else None
+
+    def live_select(self, conn_dyn, H_dyn, live_cap: int):
+        """The dynamic rows with a NONZERO element Hessian at the current
+        iterate (barriers are exactly zero past dhat), compacted through
+        kernel E into (conn_live (live_cap, b) with the dummy id past the
+        count, H_live (live_cap, 3b, 3b), valid (live_cap,), count); a count
+        above live_cap is an overflow the host resolves."""
+        nz = torch.any((H_dyn != 0.0).reshape(H_dyn.shape[0], -1), dim=1)
+        sel, cnt = compact(nz, live_cap, "live")
+        sl = sel.long()
+        valid = torch.arange(live_cap, device=nz.device) < torch.clamp_max(cnt, live_cap)
+        conn_live = torch.where(valid[:, None], conn_dyn[sl],
+                                torch.full_like(conn_dyn[sl], self.n_blocks))
+        H_live = torch.where(valid[:, None, None], H_dyn[sl],
+                             torch.zeros_like(H_dyn[sl]))
+        return conn_live, H_live, valid, cnt
+
+    def live_pool(self, conn_live, H_live, dense: bool) -> LivePool:
+        """The second bucket from live_select's rows, CSRs built on the
+        device (no host sync; ~pool_cap*b keys sorted per iteration)."""
+        n = self.n_blocks
+        conn32 = conn_live.to(torch.int32).contiguous()
+        pid_csr = (build_csr(self._pair_ids(conn_live), (n + 1) ** 2)
+                   if dense else None)
+        return LivePool(conn32=conn32, H=H_live.contiguous(),
+                        csr=build_csr(conn_live.reshape(-1), n),
+                        pid_csr=pid_csr)
 
     def scatter_rows(self, conn_cat):
         """Flat block-row vector of the single-bucket layout."""
         return conn_cat.reshape(-1)
 
-    def hvp_bucket(self, p, H_cat, topo: Topology):
-        """q = H p over the single-bucket layout (kernel B)."""
-        return _hvp_kernel(p.contiguous(), topo.conn_cat32, H_cat, topo.csr_cat)
+    def hvp_bucket(self, p, H_cat, topo: Topology, pool: Optional[LivePool] = None):
+        """q = H p: kernel B over the static bucket, plus over the pool."""
+        p = p.contiguous()
+        q = _hvp_kernel(p, topo.conn_cat32, H_cat, topo.csr_cat)
+        if pool is not None:
+            q = q + _hvp_kernel(p, pool.conn32, pool.H, pool.csr)
+        return q
 
-    def diag_bucket(self, H_cat, topo: Topology):
-        """3x3 diagonal blocks over the single-bucket layout (kernel A)."""
-        b = self.max_arity
-        Hb = H_cat.reshape(H_cat.shape[0], b, 3, b, 3)
-        d_e = torch.einsum("eiaib->eiab", Hb).reshape(-1, 9).contiguous()
-        return segment_reduce(d_e, topo.csr_cat, "diag").reshape(-1, 3, 3)
+    @staticmethod
+    def _diag_payload(H):
+        b = H.shape[-1] // 3
+        Hb = H.reshape(H.shape[0], b, 3, b, 3)
+        return torch.einsum("eiaib->eiab", Hb).reshape(-1, 9).contiguous()
+
+    def diag_bucket(self, H_cat, topo: Topology, pool: Optional[LivePool] = None):
+        """3x3 diagonal blocks (kernel A per bucket)."""
+        D = segment_reduce(self._diag_payload(H_cat), topo.csr_cat, "diag")
+        if pool is not None:
+            D = D + segment_reduce(self._diag_payload(pool.H), pool.csr, "diag")
+        return D.reshape(-1, 3, 3)
 
     # ------------------------------------------------------------------
     # dense Newton-Schulz preconditioner (small scenes)
     # ------------------------------------------------------------------
-    def assemble_dense_scatter(self, H_cat, topo: Topology):
+    @staticmethod
+    def _pair_payload(H):
+        b = H.shape[-1] // 3
+        vals = H.reshape(H.shape[0], b, 3, b, 3).permute(0, 1, 3, 2, 4)
+        return vals.reshape(-1, 9).contiguous()
+
+    def assemble_dense_scatter(self, H_cat, topo: Topology,
+                               pool: Optional[LivePool] = None):
         """Dense permuted-layout (component-major) global Hessian, summed
-        per block pair by kernel A. The dummy block carries an identity
-        diagonal so the scaled matrix stays SPD."""
-        b = self.max_arity
+        per block pair by kernel A (per bucket). The dummy block carries an
+        identity diagonal so the scaled matrix stays SPD."""
         N1 = self.n_blocks + 1
-        E_cat = H_cat.shape[0]
-        vals = H_cat.reshape(E_cat, b, 3, b, 3).permute(0, 1, 3, 2, 4)
-        vals = vals.reshape(-1, 9).contiguous()
-        D4 = segment_reduce(vals, topo.pid_csr, "dense")
+        D4 = segment_reduce(self._pair_payload(H_cat), topo.pid_csr, "dense")
+        if pool is not None:
+            D4 = D4 + segment_reduce(self._pair_payload(pool.H), pool.pid_csr,
+                                     "dense")
         D4[N1 * N1 - 1] = torch.eye(3, dtype=H_cat.dtype,
                                     device=H_cat.device).reshape(9)
         return D4.reshape(N1, N1, 3, 3).permute(2, 0, 3, 1).reshape(3 * N1, 3 * N1)
 
     def ns_refresh(self, M_prev, H_cat, topo: Topology, warm_sweeps: int = 1,
-                   cold_sweeps: int = 34):
+                   cold_sweeps: int = 34, pool: Optional[LivePool] = None):
         """Newton-Schulz tracking of the dense-inverse preconditioner:
         M' = M + M(I - Hs M) on the Jacobi-SCALED assembled Hessian, warm
         from the carried M; a quality probe falls back to the cold start
         Ms0 = I/||Hs||_inf with `cold_sweeps` doublings when the warm seed
         has diverged. Returns (M unscaled, q = max|I - Hs Ms| of the last
         sweep, was_cold). Full f32 GEMMs: the caller keeps TF32 off."""
-        Hp = self.assemble_dense_scatter(H_cat, topo)
+        Hp = self.assemble_dense_scatter(H_cat, topo, pool)
         n = Hp.shape[0]
         dg = torch.diagonal(Hp)
         ok_d = dg > 1e-30

@@ -2,15 +2,18 @@
 
 Port of the fused path of `stark_tpu/solver/newton.py`
 (`NewtonsMethod.__init__`, :77-178, and `_solve_fused`, :252-460, without the
-contact-engine and friction branches): it builds the evaluators, runs the
-fused solve of one time step (solver/fused.py), pulls the DOFs and the
-16-float stats vector back in one transfer, and maps the outcome code to a
-`SolverReturn` with the same logger keys.
+friction branch): it builds the evaluators, sizes the contact engine's
+slacks and the live-pool capacity, runs the fused solve of one time step
+(solver/fused.py), pulls the DOFs, the 16-float stats vector and the count
+vector back in one transfer, and maps the outcome code to a `SolverReturn`
+with the same logger keys. A count over its capacity bumps the capacity and
+solves the step again from the same state (logger key `fused_retraces`,
+named after the JAX package's re-trace); the capacities are kept in memory
+only (a persistent cache is ROADMAP Queue 1 P10).
 
 The staged host-driven solver, the other projection modes, the DirectLLT
 linear solver and the line-search failure dump are ROADMAP Queue 1 P5 and
-raise NotImplementedError. No capacity can overflow without contact, so the
-port keeps no learned-capacity cache.
+raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from dataclasses import dataclass
 from enum import Enum
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from ..core.callbacks import SolverCallbacks
@@ -73,7 +77,8 @@ class NewtonsMethod:
                  settings: NewtonSettings, logger: Logger, output: OutputSink,
                  get_glob: Callable, get_dofs: Callable, set_dofs: Callable,
                  get_static_data: Callable, device: torch.device,
-                 prime_host_dofs: Callable = None, jacobi_sweeps: int = None):
+                 prime_host_dofs: Callable = None, jacobi_sweeps: int = None,
+                 get_engine: Callable = None):
         self.families = families
         self.n_blocks = n_blocks
         self.callbacks = callbacks
@@ -85,6 +90,7 @@ class NewtonsMethod:
         self.set_dofs = set_dofs
         self.get_static_data = get_static_data
         self.prime_host_dofs = prime_host_dofs
+        self.get_engine = get_engine
         self.device = torch.device(device)
         self.stats = SolveStats()
         self._fused = None
@@ -94,6 +100,12 @@ class NewtonsMethod:
         self._direct_max_blocks = 2048
         # motion prior (max |du| of the last accepted solve)
         self._du_prior = 1.0
+        # live-pool capacity of the contact families (assembly.live_select)
+        self._pool_cap = 8
+        eng = self._engine()
+        if eng is not None:
+            need = max(2048, (2 * len(eng.sv_gid) + len(eng.es)) // 2)
+            self._pool_cap = 1 << (need - 1).bit_length()
         self._last_counts: Dict[str, int] = {}
         self._topo = None
         self._M_dev = None
@@ -107,6 +119,29 @@ class NewtonsMethod:
                                else project.default_jacobi_sweeps(self.device))
         # families PSD by construction skip the eigendecomposition entirely
         self._psd_names = frozenset(f.name for f in families if f.psd)
+
+    def _engine(self):
+        return self.get_engine() if self.get_engine is not None else None
+
+    def _engine_params(self, engine, dtype):
+        """Per-solve engine inputs: state, thicknesses and the slacks
+        (stark_tpu/solver/newton.py:271-309)."""
+        def t(x):
+            return torch.as_tensor(x, dtype=dtype, device=self.device)
+
+        dhat_max = 2.0 * float(np.max(np.asarray(engine.model.contact_thicknesses)))
+        return {"eng_state": engine.engine_state(), "th": engine.th_vec(),
+                "slack_pair": t(0.5 * dhat_max),
+                "slack_broad_min": t(2.0 * dhat_max),
+                # the dense path's broad radius may grow to free-fall
+                # stride scale: 8*dhat (32 mm at the default thickness)
+                "slack_broad_max": t(max(8.0 * dhat_max, 0.032)),
+                "du_floor": t(1e-4)}
+
+    def live_contact_pairs(self) -> int:
+        """Contact pairs within dhat in the last solve (max over its shell
+        builds, the n_live_* counts)."""
+        return sum(c for k, c in self._last_counts.items() if k.startswith("n_live_"))
 
     # ------------------------------------------------------------------
     def _fused_eligible(self) -> bool:
@@ -122,7 +157,7 @@ class NewtonsMethod:
     def _build_fused(self):
         from .fused import build_fused_solve
 
-        self._fused, self._fused_count_keys = build_fused_solve(self)
+        self._fused, self._fused_count_keys = build_fused_solve(self, self._engine())
 
     def _solve_fused(self) -> SolverReturn:
         s = self.settings
@@ -130,6 +165,7 @@ class NewtonsMethod:
         if self._fused is None:
             self._build_fused()
 
+        engine = self._engine()
         data_static = self.get_static_data()
         use_direct = (s.projection_mode == ProjectionToPD.ProjectedNewton
                       and self.n_blocks <= self._direct_max_blocks)
@@ -150,6 +186,8 @@ class NewtonsMethod:
             "cg_rel_tolerance": s.cg_rel_tolerance,
             "du_prior": self._du_prior,
         }
+        if engine is not None:
+            params.update(self._engine_params(engine, dtype))
 
         # persistent dense-inverse preconditioner (Newton-Schulz warm seed):
         # stays on the device across steps; zeros trigger the cold start
@@ -158,17 +196,30 @@ class NewtonsMethod:
             self._M_dev = torch.zeros((n, n), dtype=dtype, device=u0.device)
 
         syncs0 = self._ev.host_syncs
+        keys = self._fused_count_keys
         with self.logger.time("fused_solve"):
-            u_out, packed, counts_dev, M_out = self._fused(
-                u0, data_static, glob, params, self._M_dev, self._topo)
+            while True:
+                params["pool_cap"] = self._pool_cap
+                u_out, packed, counts_dev, M_out = self._fused(
+                    u0, data_static, glob, params, self._M_dev, self._topo)
+                # the one transfer per solve: the DOFs, stats and counts
+                u_np = u_out.cpu().numpy()
+                packed = packed.cpu().numpy()
+                counts = counts_dev.cpu().numpy()
+                over = self._bump_caps(engine, keys, counts)
+                if not over:
+                    break
+                # a capacity overflowed: solve the step again from the same
+                # state with the larger capacities (and the same warm
+                # preconditioner seed, so the result equals a run that
+                # started with them)
+                self.logger.add("fused_retraces", 1)
+                self.output.print_with_new_line(
+                    "fused re-solve: cap overflow on %s"
+                    % ", ".join("%s=%d" % kc for kc in over))
             self._M_dev = M_out
-            # the one transfer per step: the stats vector and the DOFs
-            u_np = u_out.cpu().numpy()
-            packed = packed.cpu().numpy()
-            counts = counts_dev.cpu().numpy()
         self.stats.host_syncs = self._ev.host_syncs - syncs0 + 1
-        self._last_counts = {k: int(c) for k, c in
-                             zip(self._fused_count_keys, counts)}
+        self._last_counts = {k: int(c) for k, c in zip(keys, counts)}
 
         code = int(packed[0])
         self.logger.append("solver_code", code)
@@ -187,6 +238,7 @@ class NewtonsMethod:
         st.n_projected_hessians = int(packed[7])
         st.n_hessians = int(packed[8])
         self.logger.add_and_append("broad_rebuilds", int(packed[12]))
+        self.logger.add_and_append("live_contact_pairs", self.live_contact_pairs())
         self.logger.add_and_append("pair_rebuilds", int(packed[13]))
         self.logger.append("ns_q", float(packed[14]))
         self.logger.add_and_append("ns_cold_restarts", int(packed[15]))
@@ -225,6 +277,23 @@ class NewtonsMethod:
             if not self.callbacks.run_is_converged_state_valid():
                 result = SolverReturn.InvalidConvergedState
         return result
+
+    def _bump_caps(self, engine, keys, counts):
+        """Grow every capacity a count exceeded; returns [(key, count)] of
+        the overflows (empty when none)."""
+        over = []
+        live = int(counts[keys.index("hvp_pool")])
+        if live > self._pool_cap:
+            while self._pool_cap < live:
+                self._pool_cap *= 2
+            over.append(("hvp_pool", live))
+        eng_kc = [(k, c) for k, c in zip(keys, counts)
+                  if k not in ("hvp_pool", "direct_slots")]
+        if engine is not None and eng_kc \
+                and engine._check_overflow([k for k, _ in eng_kc],
+                                           [c for _, c in eng_kc]):
+            over += engine._last_overflow
+        return over
 
     # ------------------------------------------------------------------
     def solve(self) -> SolverReturn:

@@ -39,3 +39,32 @@ def state_from_numpy(x0, v0, X, dtype: torch.dtype = torch.float64,
     return {"x0": x0, "v0": _tensor(v0, dtype, device),
             "X": _tensor(X, dtype, device),
             "pt_a": torch.zeros_like(x0), "pt_f": torch.zeros_like(x0)}
+
+
+def set_rigid_state(rb_dyn, t0, q0, v1=None, w1=None):
+    """Give the port's frozen rigid bodies (`Simulation._rb_dyn`) a state:
+    translations t0 (n, 3) and unit quaternions q0 (n, 4) (w, x, y, z) on the
+    host, and the trial velocities v1, w1 (n, 3) on the device (None keeps
+    the current ones)."""
+    rb_dyn.t0 = np.array(t0, dtype=np.float64).reshape(-1, 3)
+    rb_dyn.q0 = np.array(q0, dtype=np.float64).reshape(-1, 4)
+    if v1 is not None:
+        rb_dyn.v1 = _tensor(np.reshape(v1, (-1, 3)), rb_dyn.dtype, rb_dyn.device)
+    if w1 is not None:
+        rb_dyn.w1 = _tensor(np.reshape(w1, (-1, 3)), rb_dyn.dtype, rb_dyn.device)
+
+
+def set_contact_state(contact, thicknesses, stiffness: float, caps=None):
+    """Give the port's contact model (`Simulation.interactions.contact`) the
+    per-mesh contact thicknesses, the running barrier stiffness and, once the
+    engine exists (after the first step's freeze), the list capacities of the
+    JAX engine (`engine._caps`; the names the port does not have are
+    ignored)."""
+    contact.contact_thicknesses = [float(t) for t in np.asarray(thicknesses).ravel()]
+    contact.contact_stiffness = float(stiffness)
+    if caps:
+        eng = contact.engine()
+        if eng is None:
+            raise RuntimeError("set_contact_state: the contact engine is built "
+                               "at the first step; carry caps after it")
+        eng.set_caps({k: int(v) for k, v in caps.items()})

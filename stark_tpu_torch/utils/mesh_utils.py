@@ -250,3 +250,42 @@ def mirror(points, dim: int, pivot: float = 0.0):
     points = np.asarray(points, dtype=np.float64).copy()
     points[:, dim] = 2.0 * pivot - points[:, dim]
     return points
+
+
+def rcm_order(edges, n_nodes: int) -> np.ndarray:
+    """Reverse Cuthill-McKee permutation (new -> old) of an undirected edge
+    list (symx mesh_ordering.h:5-33). Seeds and neighbours are visited by
+    ascending degree with ties kept in index/adjacency order (a stable
+    sort), which is what the JAX package's native sn_rcm_order produces for
+    the small rigid meshes it orders (std::sort is an insertion sort below
+    17 elements)."""
+    edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    adj = [[] for _ in range(n_nodes)]
+    for a, b in edges.tolist():
+        if a == b:
+            continue
+        adj[a].append(b)
+        adj[b].append(a)
+    degree = [len(x) for x in adj]
+    visited = [False] * n_nodes
+    order = []
+    by_degree = sorted(range(n_nodes), key=lambda i: degree[i])
+    seed_pos = 0
+    while len(order) < n_nodes:
+        while seed_pos < n_nodes and visited[by_degree[seed_pos]]:
+            seed_pos += 1
+        if seed_pos >= n_nodes:
+            break
+        seed = by_degree[seed_pos]
+        visited[seed] = True
+        head = len(order)
+        order.append(seed)
+        while head < len(order):
+            u = order[head]
+            head += 1
+            for v in sorted((v for v in adj[u] if not visited[v]),
+                            key=lambda i: degree[i]):
+                if not visited[v]:
+                    visited[v] = True
+                    order.append(v)
+    return np.asarray(order[::-1], dtype=np.int64)

@@ -219,16 +219,21 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 
 def test_unported_paths_raise():
+    """What the port does not run yet raises, naming its ROADMAP item; the
+    rigid bodies (P2) and frictionless contact (P3) are ported."""
     contact_on = stark_tpu_torch.Settings()
     contact_on.device.device = "cpu"
     assert contact_on.simulation.init_frictional_contact
-    with pytest.raises(NotImplementedError, match="P3"):
-        stark_tpu_torch.Simulation(contact_on)
+    sim = stark_tpu_torch.Simulation(contact_on)
+    assert sim.interactions.contact is not None
+    assert sim.rigidbodies is not None
+    with pytest.raises(NotImplementedError, match="P8"):
+        sim.interactions.attachments
+    a = sim.rigidbodies.add(1.0, np.eye(3))
+    b = sim.rigidbodies.add(1.0, np.eye(3))
+    with pytest.raises(NotImplementedError, match="P6"):
+        sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
     sim = stark_tpu_torch.Simulation(_settings(stark_tpu_torch, cpu=True))
-    with pytest.raises(NotImplementedError, match="P2"):
-        sim.rigidbodies
-    with pytest.raises(NotImplementedError, match="P3"):
-        sim.interactions
     with pytest.raises(NotImplementedError, match="P7"):
         sim.deformables.tet_strain
 

@@ -1,6 +1,7 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
 `chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`."""
 import ast
+import importlib
 import os
 
 import pytest
@@ -30,10 +31,45 @@ def _imported_roots(path):
     return roots
 
 
+def _module_name(path):
+    rel = os.path.relpath(path, ROOT)[:-len(".py")].replace(os.sep, ".")
+    return rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
+
+
+# the rigid-body and contact slice: every module must exist and import
+CONTACT_SLICE = [
+    "stark_tpu_torch.collision.narrow_phase",
+    "stark_tpu_torch.models.rigid_dynamics",
+    "stark_tpu_torch.models.rigidbodies.inertia_tensors",
+    "stark_tpu_torch.models.rigidbodies.inertia",
+    "stark_tpu_torch.models.rigidbodies.constraints",
+    "stark_tpu_torch.models.rigidbodies.joints",
+    "stark_tpu_torch.models.rigidbodies.rigidbodies",
+    "stark_tpu_torch.models.interactions.contact",
+    "stark_tpu_torch.models.interactions.contact_energies",
+    "stark_tpu_torch.models.interactions.contact_engine",
+    "stark_tpu_torch.models.interactions.interactions",
+    "stark_tpu_torch.ops.compact",
+    "stark_tpu_torch.ops.ball_wide",
+    "stark_tpu_torch.ops.narrow",
+    "stark_tpu_torch.ops.segment_triangle",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
     assert any(f.endswith("solver/fused.py") for f in files)
+    names = {_module_name(f) for f in files}
+    assert set(CONTACT_SLICE) <= names
+
+
+@pytest.mark.parametrize("name", CONTACT_SLICE)
+def test_contact_slice_module_imports(name):
+    """Each module of the contact slice imports on a machine without a card
+    or nvcc (no kernel is built at import time)."""
+    mod = importlib.import_module(name)
+    assert not any(hasattr(mod, n) for n in ("jax", "jnp"))
 
 
 @pytest.mark.parametrize("path", _port_files(),
