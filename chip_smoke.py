@@ -17,7 +17,7 @@ Phases (every failure propagates; nothing is caught):
   5. run the 32x32 cloth in float32 (the dense Newton-Schulz branch);
   6. run the hanging_cloth_16 golden scene in float64 for 30 steps against
      the reference C++ trajectory in tests/golden/;
-  7. run bench.py's spinning_box_cloth at 32x32 in float32 for 0.5 simulated
+  7. run bench.py's spinning_box_cloth at 32x32 in float32 for 0.4 simulated
      seconds (the rigid box and frictionless IPC contact: kernels A-H), print
      bench.py's fields, and check it: finite, live contact pairs, no
      intersection, every kernel of the path launched;
@@ -28,7 +28,15 @@ Phases (every failure propagates; nothing is caught):
      reference trajectory, with tests/test_trajectory_parity.py's bounds
      (in a child process, `chip_smoke.py --golden-sbc16 OUT`, started after
      phase 2 and running beside phases 3-8);
- 10. print the kernels' JSON line, the card line, and the result line.
+ 10. run the same 32x32 spinning box with Coulomb friction mu = 1 (cloth and
+     box, cloth and itself) in float32 for 0.3 simulated seconds (lagged
+     friction: kernels I and J besides A-H), print bench.py's fields and the
+     live friction rows, check it (finite, friction rows, no intersection,
+     every kernel of the path launched), then hold kernels I and J against
+     their twins on the CPU in f32 and f64 at the final state and time them
+     (in a child process, `chip_smoke.py --friction OUT`, started with
+     phase 9's);
+ 11. print the kernels' JSON line, the card line, and the result line.
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -54,7 +62,8 @@ GOLDEN = os.path.join(ROOT, "tests", "golden", "hanging_cloth_16.txt.gz")
 GOLDEN_SBC = os.path.join(ROOT, "tests", "golden", "spinning_box_cloth_16.txt.gz")
 DEVICE = "cuda"
 N_MAIN, N_DENSE, MAIN_STEPS, DENSE_STEPS = 64, 32, 6, 3
-N_SBC, SBC_SECONDS = 32, 0.5
+N_SBC, SBC_SECONDS = 32, 0.4
+FRICTION_MU, FRICTION_SECONDS = 1.0, 0.3
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores; f64 outside the tensor cores is half
@@ -107,11 +116,14 @@ def pin_top_corners(sim, h, Params, size, stiffness=None):
             h.point_set, (cx, hd, 0.0), (0.001, 0.001, 0.001), bc)
 
 
-def make_spinning_box(n: int, dtype: str, adaptive: bool = True):
-    """bench.py's spinning_box_cloth on DEVICE: (sim, cloth, spin(t))."""
+def make_spinning_box(n: int, dtype: str, adaptive: bool = True, mu: float = 0.0):
+    """bench.py's spinning_box_cloth on DEVICE (with Coulomb friction mu
+    between cloth and box and of the cloth with itself when mu > 0):
+    (sim, cloth, spin(t))."""
     from stark_tpu_torch.tools.scenes import spinning_box_cloth
 
-    return spinning_box_cloth(n, dtype, DEVICE, adaptive, name="chip_smoke_spinning_box")
+    return spinning_box_cloth(n, dtype, DEVICE, adaptive, name="chip_smoke_spinning_box",
+                              mu=mu)
 
 
 def frozen_inputs(sim, dense: bool, seed: int):
@@ -604,7 +616,7 @@ def run_spinning_box(sim, spin_steps):
     from stark_tpu_torch.ops import build
 
     logger = sim.get_logger()
-    count_max, live = {}, []
+    count_max, live, fric = {}, [], []
     build.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -620,6 +632,7 @@ def run_spinning_box(sim, spin_steps):
         for k, v in nm._last_counts.items():
             count_max[k] = max(count_max.get(k, 0), int(v))
         live.append(nm.live_contact_pairs())
+        fric.append(nm.friction_rows())
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = dict(build.launches)
@@ -637,6 +650,7 @@ def run_spinning_box(sim, spin_steps):
         "fused_retraces": int(logger.get_int("fused_retraces")),
         "count_max": dict(sorted(count_max.items())),
         "live_pairs_last": live[-1], "live_pairs_max": max(live),
+        "friction_rows_last": fric[-1], "friction_rows_max": max(fric),
         "host_syncs_per_step": syncs / max(steps, 1),
         "steps": steps, "sim_seconds": sim.get_time(), "newton_iters": newton,
         "wall_s": t1 - t0, "first_step_s": t_warm - t0,
@@ -690,30 +704,306 @@ def golden_sbc16(out_json: str) -> int:
     return 0
 
 
-def start_golden_sbc16():
-    """Start phase 9 in a child process; (process, result path, log file)."""
-    path = os.path.join(OUT_DIR, "golden_sbc16.json")
+def start_child(flag: str, name: str):
+    """Start `chip_smoke.py FLAG OUT_JSON` in a child process; (process,
+    result path, log file), both files in OUT_DIR."""
+    path = os.path.join(OUT_DIR, name + ".json")
     if os.path.exists(path):
         os.remove(path)
-    logf = open(os.path.join(OUT_DIR, "golden_sbc16.log"), "w")
+    logf = open(os.path.join(OUT_DIR, name + ".log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--golden-sbc16", path],
+        [sys.executable, os.path.abspath(__file__), flag, path],
         stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT)
     return proc, path, logf
 
 
-def finish_golden_sbc16(child):
+def finish_child(child, what: str) -> dict:
+    """Wait for a child and return the results it wrote; raise with the
+    tail of its log if it failed."""
     proc, path, logf = child
     rc = proc.wait()
     logf.flush()
     if rc != 0 or not os.path.exists(path):
         with open(logf.name) as f:
             tail = f.read()[-4000:]
-        raise AssertionError(f"the spinning_box_cloth_16 golden run failed "
-                             f"(exit {rc}):\n{tail}")
+        raise AssertionError(f"{what} failed (exit {rc}):\n{tail}")
     with open(path) as f:
-        r = json.load(f)
-    return r["devs"], r["seconds"]
+        return json.load(f)
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the spinning box with lagged friction, kernels I and J
+# ---------------------------------------------------------------------------
+# Operation counts of the device functions that I and J run, per distance
+# region, counted in narrow.cuh and friction_rows.cu: an add, subtract,
+# multiply, divide, square root or log is one, an FMA two; compares and
+# selects are none; a subexpression repeated with the same operands once.
+# Building blocks: a 3-vector difference 3, dot 5, cross 9 (three FMAs and
+# three products), normalized 9 (a dot, a sqrt, three divides).
+# Region tests, the cheapest branch through each:
+#   PT 108: cross(t1-t0, t2-t0) 15, and 3 edge_param of 31 each (e 3,
+#       |e|^2 5, p-e0 3, s 5+1, cross(e, n) 9, o 5);
+#   EE 56: u, v, w 9, five dots 25, D 3, |u x v|^2 14, the parallel cut 2,
+#       sN 3 (the parallel branch's alpha and beta cost 18).
+REGION_OPS = {"pt": 108, "ee": 56}
+# narrow.cuh's squared distance per region, plus the sqrt: point-point 8,
+# point-line 24, point-plane 30, line-line 42
+DIST_OPS = {"pt": [9, 9, 9, 25, 25, 25, 31], "ee": [9] * 4 + [25] * 4 + [43]}
+# friction_rows.cu per region, the anchor and the tangent basis:
+# proj_point_point 48; edge_alpha 17 (+1 for PT's 1 - alpha) and
+# proj_point_edge 33; PT's face barycentric 47 and proj_triangle 42; EE's
+# line parameters 39 (the parallel branch, the cheaper) and proj_edge_edge 42
+ROW_OPS = {"pt": [48] * 3 + [51] * 3 + [89], "ee": [48] * 4 + [50] * 4 + [81]}
+# barrier_force: Cubic k * gap^2 3; Log 9
+FN_OPS = {"Cubic": 3, "Log": 9}
+
+
+def region_hist(kind, V, table, keep, ptol):
+    """Histogram of the distance regions over the pairs kernel I evaluates
+    (the (Nq, Nt) mask `keep`: allowed and mu != 0), by the twin's
+    classifier on the card, in chunks."""
+    from stark_tpu_torch.collision import narrow_phase as nph
+
+    n_reg = len(DIST_OPS[kind])
+    idx = torch.nonzero(keep.reshape(-1)).reshape(-1)
+    nt = keep.shape[1]
+    hist = torch.zeros(n_reg, dtype=torch.int64, device=V.device)
+    for s in range(0, idx.numel(), 1 << 21):
+        k = idx[s:s + (1 << 21)]
+        i, j = k // nt, k % nt
+        if kind == "pt":
+            tri = table[j].long()
+            reg = nph.point_triangle_region(V[i], V[tri[:, 0]], V[tri[:, 1]], V[tri[:, 2]])
+        else:
+            ea, eb = table[i].long(), table[j].long()
+            reg = nph.edge_edge_region(V[ea[:, 0]], V[ea[:, 1]], V[eb[:, 0]], V[eb[:, 1]],
+                                       ptol)
+        hist += torch.bincount(reg.long(), minlength=n_reg)
+    return hist.cpu()
+
+
+def ops_of(hist, per_region, base) -> float:
+    """Operations of rows with this region histogram."""
+    return float(sum(int(c) * (base + per_region[r]) for r, c in enumerate(hist)))
+
+
+def _row_amp(x32, x64):
+    """Per row, |x32 - x64| in units of the float32 eps: how far the row's
+    rounding is amplified (ill-conditioned tangent bases, line parameters of
+    nearly parallel edges)."""
+    d = (x32.double() - x64.double()).abs().reshape(x32.shape[0], -1).amax(1)
+    return d / torch.finfo(torch.float32).eps
+
+
+def friction_kernel_checks(sim):
+    """Kernels I and J at the friction run's final state (the step-start
+    positions of the next step), f64 and f32 (the f64 inputs are the f32
+    state cast up), against their twins on the CPU: I's lists and counts
+    exactly, its distances within 64 eps of the coordinate scale; J per
+    friction family on the rows kernel E routes from I's lists: in f64 the
+    same regions on every row and anchors and tangent bases within 64 eps of
+    the coordinate scale; in f32 the same on the rows whose region f32
+    rounding does not decide (the f32 and f64 twins agree; the rest are
+    counted as left_out), within eps * max(64 * scale, 8 * the row's f32
+    rounding amplification); mu exactly, fn within 64 eps of its largest
+    value. Times I and J in f32."""
+    from stark_tpu_torch.ops import friction_pairs as fp, friction_rows as fr
+
+    eng = sim.interactions.contact.engine()
+    contact = sim.interactions.contact
+    Vs, Vr = eng.step_start_world(eng.engine_state())
+    V32 = eng._vcat(Vs, Vr).contiguous()
+    glob = eng.glob_entries()
+    ptol = contact.edge_edge_cross_norm_sq_cutoff
+    btype = contact.ipc_barrier_type
+    results = {}
+
+    def on(x, dtype, device):
+        if not isinstance(x, torch.Tensor):
+            return x
+        x = x.to(device)
+        return x.to(dtype) if x.is_floating_point() else x
+
+    def grid(dtype, device):
+        V, mu, th = (on(x, dtype, device) for x in (V32, glob["mu_mat"], eng.th_vec()))
+        i32 = lambda x: x.to(device)
+        return {"pt": (V, i32(eng.d_tris_all), i32(eng.d_pt_allowed), i32(eng.d_p_mesh32),
+                       i32(eng.d_t_mesh32), mu, th, eng._cap("f_pt")),
+                "ee": (V, i32(eng.d_edges_all), i32(eng.d_ee_allowed), i32(eng.d_e_mesh32),
+                       mu, th, eng._cap("f_ee"), ptol)}
+
+    pairs = {"pt": (fp.friction_pairs_pt, fp.friction_pairs_pt_plain),
+             "ee": (fp.friction_pairs_ee, fp.friction_pairs_ee_plain)}
+    rows = {"pt": (fr.friction_rows_pt, fr.friction_rows_pt_plain),
+            "ee": (fr.friction_rows_ee, fr.friction_rows_ee_plain)}
+    for dtype in (torch.float64, torch.float32):
+        main = dtype == torch.float32
+        log(f"-- {dtype}")
+        eps = torch.finfo(dtype).eps
+        on_card = grid(dtype, DEVICE)
+        k = glob["contact_k"].to(dtype)
+        scale = 1.0 + float(V32.abs().max())
+        for kind in ("pt", "ee"):
+            kern, plain = pairs[kind]
+            args = on_card[kind]
+            out = kern(*args)
+            ref = plain(*grid(dtype, "cpu")[kind])
+            torch.cuda.synchronize()
+            n = int(ref[4])
+            same = (int(out[4]) == n and torch.equal(out[0].cpu(), ref[0])
+                    and torch.equal(out[1].cpu(), ref[1]) and torch.equal(out[3].cpu(), ref[3]))
+            table, allowed, meshes = args[1], args[2], args[3:5] if kind == "pt" else args[3:4]
+            nq, nt = allowed.shape
+            cap = args[7] if kind == "pt" else args[6]
+            log(f"  friction_pairs[{kind}] {str(dtype):<14} grid={nq}x{nt} pairs={n} "
+                f"cap={cap} {'ok' if same else 'FAIL'}")
+            if not same:
+                raise AssertionError(f"friction_pairs[{kind}] ({dtype}) differs from its twin")
+            err_i = check(f"friction_pairs[{kind}] d", dtype, (out[2].cpu() - ref[2]).abs(),
+                          torch.full_like(ref[2], 64 * eps * scale))
+            q, t, d, dhat, cnt = out
+            act = torch.arange(cap, device=DEVICE) < torch.clamp_max(cnt, cap)
+            route = eng._route_pt if kind == "pt" else eng._route_ee
+            routed = route(q, t, act, dhat, cap_pfx="f_", d_rows=d)
+            best = None
+            err_j = 0.0
+            for stem, (a_loc, b_loc, _act, dh, ds, c) in routed.items():
+                if kind == "pt":
+                    ag = a_loc + (0 if stem[3] == "d" else eng.n_sv)
+                    bg = b_loc + (0 if stem[4] == "d" else eng.n_ts)
+                    jargs = (args[0], table, ag, bg, c, ds, dh, *meshes, args[5], k, btype)
+                else:
+                    ag = a_loc + (0 if stem == "ee_dd" else eng.n_es)
+                    bg = b_loc + (eng.n_es if stem == "ee_rr" else 0)
+                    jargs = (args[0], table, ag, bg, c, ds, dh, *meshes, args[4], k, btype,
+                             ptol)
+                jk, jp = rows[kind]
+                o = [x.cpu() for x in jk(*jargs)]
+                r = jp(*(on(x, dtype, "cpu") for x in jargs))
+                torch.cuda.synchronize()
+                nr = min(int(c), o[0].shape[0])
+                # f64: every row at 64 eps of the coordinate scale
+                decided = torch.ones_like(r[0], dtype=torch.bool)
+                tol = torch.full((r[0].shape[0],), 64.0 * eps * scale, dtype=torch.float64)
+                if main:
+                    # f32: rows whose region f32 rounding decides (the f32
+                    # and f64 twins disagree) are left out, and a row's
+                    # tolerance grows with its f32 rounding amplification
+                    r64 = jp(*(on(x, torch.float64, "cpu") for x in jargs))
+                    decided = r[0] == r64[0]
+                    amp = torch.maximum(_row_amp(r[1], r64[1]), _row_amp(r[2], r64[2]))
+                    tol = eps * torch.clamp_min(8.0 * amp, 64.0 * scale)
+                n_out = int((~decided).sum())
+                if not torch.equal(o[0][decided], r[0][decided]) \
+                        or not torch.equal(o[3], r[3]):
+                    raise AssertionError(f"friction_rows[{kind}] {stem} ({dtype}): "
+                                         "regions or mu differ from the twin")
+                for name, x, y in (("anchor", o[1], r[1]), ("T", o[2], r[2])):
+                    e = (x - y).abs().double().reshape(x.shape[0], -1).amax(1)
+                    e = torch.where(decided, e, torch.zeros_like(e))
+                    err_j = max(err_j, check(
+                        f"friction_rows[{kind}] {stem} {name} n={nr} left_out={n_out}",
+                        dtype, e, tol))
+                fscale = float(r[4].abs().max()) if nr else 0.0
+                check(f"friction_rows[{kind}] {stem} fn", dtype, (o[4] - r[4]).abs(),
+                      torch.full_like(r[4], 64 * eps * fscale + torch.finfo(dtype).tiny))
+                if best is None or nr > best[0]:
+                    best = (nr, stem, jargs, o[0][:nr])
+            if not main:
+                continue
+            # ---- timings and bounds (float32, the main path's dtype) ----
+            # I: the mask, vertices, table, mesh ids, mu and th read once,
+            # the (cap,) lists and the count written once; one distance per
+            # allowed pair with mu != 0, priced by its region
+            el = args[0].element_size()
+            mu_g, th_g = (args[5], args[6]) if kind == "pt" else (args[4], args[5])
+            mu_ok = mu_g[meshes[0].long()][:, meshes[-1].long()] != 0
+            keep = allowed.bool() & mu_ok
+            n_eval = int(keep.sum())
+            ops_i = ops_of(region_hist(kind, args[0], table, keep, ptol), DIST_OPS[kind],
+                           REGION_OPS[kind])
+            bnd = bound_ms(nq * nt + nbytes(args[0], table, *meshes, mu_g, th_g)
+                           + cap * (8 + 2 * el) + 4, ops_i, dtype)
+            results[f"friction_pairs[{kind}]"] = dict(
+                max_abs_err=err_i, ms=graph_ms(lambda: kern(*args)),
+                plain_ms=events_ms(lambda: plain(*args), iters=3),
+                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+                shape=f"{nq}x{nt} grid, {n_eval} pairs evaluated "
+                      f"({ops_i / max(n_eval, 1):.1f} ops each), {n} kept, cap {cap}")
+            # J (the family with the most rows): vertices, table, mesh ids
+            # and mu read once, each active row's two indices, d and dhat,
+            # and every row's region, anchor, T, mu and fn written
+            nr, stem, jargs, regs = best
+            R = jargs[2].shape[0]
+            width = 3 if kind == "pt" else 2
+            hist_j = torch.bincount(regs.long(), minlength=len(ROW_OPS[kind]))
+            ops_j = ops_of(hist_j, ROW_OPS[kind], REGION_OPS[kind] + FN_OPS[btype])
+            bnd = bound_ms(nbytes(args[0], table, *meshes, mu_g)
+                           + nr * (8 + 2 * el) + R * (4 + (width + 8) * el),
+                           ops_j, dtype)
+            jk, jp = rows[kind]
+            results[f"friction_rows[{kind}]"] = dict(
+                max_abs_err=err_j, ms=graph_ms(lambda: jk(*jargs)),
+                plain_ms=events_ms(lambda: jp(*jargs), iters=3),
+                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+                shape=f"friction_{stem}: {R} rows, {nr} active "
+                      f"({ops_j / max(nr, 1):.1f} ops each)")
+    return results
+
+
+def friction_run(out_json: str) -> int:
+    """Phase 10's work, run as `chip_smoke.py --friction OUT_JSON`: the
+    32x32 spinning box with friction in float32 through Simulation.run for
+    FRICTION_SECONDS, its checks, then kernels I and J against their twins;
+    writes the fields, the main path's launches and the kernel records."""
+    from stark_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(4)     # the parent and phase 9 share the host
+    t0 = time.perf_counter()
+    sim, cloth, spin = make_spinning_box(N_SBC, "float32", mu=FRICTION_MU)
+    sim.add_time_event(0.0, 10.0, spin)
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    assert sim.run(duration=FRICTION_SECONDS - 1e-9), "the friction run failed"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t_run
+    launches = dict(build.launches)
+    launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
+    lg = sim.get_logger()
+    newton = int(lg.get_stats("newton_iterations").total)
+    steps = sim.stark.current_time_step
+    fric = [int(v) for v in lg.series["friction_rows"]]
+    counts = sim.stark.newton._last_counts
+    fields = {
+        "steps": steps, "sim_seconds": sim.get_time(), "newton_iters": newton,
+        "wall_s": wall, "ms_per_newton_iter": 1e3 * wall / max(newton, 1),
+        "cg_per_newton": int(lg.get_stats("cg_iterations").total) / max(newton, 1),
+        "broad_rebuilds": int(lg.get_stats("broad_rebuilds").total),
+        "pair_rebuilds": int(lg.get_stats("pair_rebuilds").total),
+        "fused_retraces": int(lg.get_int("fused_retraces")),
+        "host_syncs_per_step": int(lg.get_stats("host_syncs").total) / max(steps, 1),
+        "live_pairs_last": sim.stark.newton.live_contact_pairs(),
+        "friction_rows_per_solve": fric,
+        "friction_rows_last": fric[-1],
+        "friction_counts_last": {k: int(v) for k, v in counts.items() if k.startswith("f_")},
+        "solver_codes": [int(c) for c in lg.series["solver_code"]],
+    }
+    print("friction run: " + json.dumps(fields), flush=True)
+    print(f"launches={launches}", flush=True)
+    x = cloth.point_set.get_positions()
+    assert np.all(np.isfinite(x)), "non-finite positions"
+    assert fields["friction_rows_last"] > 0, "no live friction rows"
+    assert not intersects_now(sim), "the final state intersects"
+    assert_launched(launches, CONTACT_KERNELS + FRICTION_KERNELS + SOLVER_KERNELS,
+                    "the friction path")
+    results = friction_kernel_checks(sim)
+    with open(out_json, "w") as f:
+        json.dump({"fields": fields, "launches": launches, "results": results,
+                   "seconds": time.perf_counter() - t0}, f)
+    return 0
 
 
 KERNELS = [
@@ -743,9 +1033,29 @@ KERNELS = [
      "stark_tpu/collision/narrow_phase.py:328"),
     ("segment_triangle_any", "stark_tpu_torch/csrc/segment_triangle.cu",
      "stark_tpu/models/interactions/contact_engine.py:1782"),
+    # the friction path (phase 10): the pair lists of friction_tables' dense
+    # branch (:1535) and its per-row anchors
+    ("friction_pairs[pt]", "stark_tpu_torch/csrc/friction_pairs.cu",
+     "stark_tpu/models/interactions/contact_engine.py:1019"),
+    ("friction_pairs[ee]", "stark_tpu_torch/csrc/friction_pairs.cu",
+     "stark_tpu/models/interactions/contact_engine.py:1031"),
+    ("friction_rows[pt]", "stark_tpu_torch/csrc/friction_rows.cu",
+     "stark_tpu/collision/narrow_phase.py:172"),
+    ("friction_rows[ee]", "stark_tpu_torch/csrc/friction_rows.cu",
+     "stark_tpu/collision/narrow_phase.py:333"),
 ]
 CONTACT_KERNELS = ("compact", "ball_wide", "pt_ee_distance[pt]",
                    "pt_ee_distance[ee]", "segment_triangle_any")
+FRICTION_KERNELS = ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[pt]",
+                    "friction_rows[ee]")
+SOLVER_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "segment_reduce[dense]",
+                  "hvp_bucket", "pd_project", "block3_inverse", "block3_apply")
+
+
+def assert_launched(launches, names, where: str):
+    """Every kernel named was launched at least once in the run."""
+    for k in names:
+        assert launches.get(k, 0) > 0, f"{k} never launched on {where}"
 
 
 def main() -> int:
@@ -775,19 +1085,21 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phase 9 runs beside phases 3-8 in a process of its own: the work is
-    # host-bound (one Python thread each) and the card mostly idle
-    golden = start_golden_sbc16()
+    # phases 9 and 10 run beside phases 3-8, each in a process of its own:
+    # the work is host-bound (one Python thread each) and the card mostly idle
+    children = [start_child("--golden-sbc16", "golden_sbc16"),
+                start_child("--friction", "friction")]
     try:
-        return phases_3_to_10(card, t_start, golden)
+        return phases_3_to_11(card, t_start, *children)
     finally:
-        if golden[0].poll() is None:
-            golden[0].kill()
-            golden[0].wait()
-        golden[2].close()
+        for proc, _path, logf in children:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            logf.close()
 
 
-def phases_3_to_10(card, t_start, golden_child) -> int:
+def phases_3_to_11(card, t_start, golden_child, friction_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -864,10 +1176,7 @@ def phases_3_to_10(card, t_start, golden_child) -> int:
     assert np.all(np.isfinite(x)), "non-finite positions"
     assert fields["live_pairs_last"] > 0, "no live contact pairs"
     assert not intersects_now(sbc), "the final state intersects"
-    for k in CONTACT_KERNELS + ("segment_reduce[egh]", "segment_reduce[diag]",
-                                "segment_reduce[dense]", "hvp_bucket",
-                                "pd_project", "block3_inverse", "block3_apply"):
-        assert launches_sbc.get(k, 0) > 0, f"{k} never launched on the contact path"
+    assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS, "the contact path")
 
     # ---- 8 ----
     log("phase 8: kernels E-H (and C on the live pool) against their twins")
@@ -875,18 +1184,33 @@ def phases_3_to_10(card, t_start, golden_child) -> int:
 
     # ---- 9: the contact golden (its own process, started after phase 2)
     log("phase 9: spinning_box_cloth_16 golden, float64, cuda")
-    devs, golden_s = finish_golden_sbc16(golden_child)
+    r9 = finish_child(golden_child, "the spinning_box_cloth_16 golden run")
+    devs, golden_s = r9["devs"], r9["seconds"]
     log(f"  {len(devs)} steps in {golden_s:.2f}s (beside phases 3-8), max vertex "
         f"deviation per step {[f'{d:.2e}' for d in devs]}")
     for step, dev in enumerate(devs):
         bound = 5e-4 if step < 2 else 2e-3 if step < 3 else 1e-1
         assert dev < bound, f"golden step {step}: deviation {dev} over {bound}"
 
-    # ---- 10 ----
+    # ---- 10: lagged friction (its own process, started with phase 9's)
+    log(f"phase 10: spinning_box_cloth {N_SBC}x{N_SBC} with friction mu={FRICTION_MU}, "
+        f"float32, cuda, {FRICTION_SECONDS} s; kernels I and J against their twins")
+    r10 = finish_child(friction_child, "the friction run")
+    with open(os.path.join(OUT_DIR, "friction.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("friction run:", "launches=", "  friction_", "-- ")):
+                log("  " + line.strip())
+    log(f"  {r10['seconds']:.2f}s (beside phases 3-9)")
+    launches_fric = r10["launches"]
+    results.update(r10["results"])
+
+    # ---- 11 ----
     kernels = []
     for name, source, replaces in KERNELS:
         r = results[name]
-        if name in CONTACT_KERNELS:
+        if name in FRICTION_KERNELS:
+            launches = launches_fric.get(name, 0)
+        elif name in CONTACT_KERNELS:
             launches = launches_sbc.get(name, 0)
         else:
             launches = (launches32 if name == "segment_reduce[dense]"
@@ -899,8 +1223,10 @@ def phases_3_to_10(card, t_start, golden_child) -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"]})
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
-                                      "spinning_box32_f32": fields},
+                                      "spinning_box32_f32": fields,
+                                      "spinning_box32_friction_f32": r10["fields"]},
                "spinning_box_launches": launches_sbc,
+               "friction_launches": launches_fric,
                "golden16_f64_max_dev": worst,
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
                "build_s": build.build_info["seconds"],
@@ -919,4 +1245,6 @@ def phases_3_to_10(card, t_start, golden_child) -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--golden-sbc16":
         sys.exit(golden_sbc16(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--friction":
+        sys.exit(friction_run(sys.argv[2]))
     sys.exit(main())

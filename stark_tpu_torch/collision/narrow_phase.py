@@ -1,9 +1,10 @@
-"""Branchless IPC narrow phase: distance regions, distances, intersection.
+"""Branchless IPC narrow phase: distance regions, distances, friction
+geometry, intersection.
 
-Port of the parts of `stark_tpu/collision/narrow_phase.py` that frictionless
-contact needs. Every function works on (..., 3) tensors: unbatched under
-`torch.func.vmap` (the contact energies), or batched over flat candidate
-rows (the plain twins of kernels G and H, ops/narrow.py). The integer
+Port of `stark_tpu/collision/narrow_phase.py`. Every function works on
+(..., 3) tensors: unbatched under `torch.func.vmap` (the contact energies),
+or batched over flat candidate rows (the plain twins of kernels G, H and J,
+ops/narrow.py, ops/segment_triangle.py, ops/friction_rows.py). The integer
 region code selects the smooth formula through a one-hot masked sum, so
 `torch.func` derivatives flow only through the selected formula and no
 data-dependent indexing enters the autodiff graph.
@@ -49,6 +50,19 @@ def _select(cands, region, n: int):
     """cands (..., n) -> the entry at `region` via a one-hot masked sum."""
     oh = (region[..., None] == torch.arange(n, device=region.device))
     return torch.sum(cands * oh.to(cands.dtype), dim=-1)
+
+
+def _select_rows(cands, region, n: int):
+    """cands (..., n, *s) -> the (*s) entry at `region` along the n axis, by
+    the same one-hot masked sum."""
+    oh = (region[..., None] == torch.arange(n, device=region.device)).to(cands.dtype)
+    oh = oh.reshape(oh.shape + (1,) * (cands.dim() - oh.dim()))
+    return torch.sum(cands * oh, dim=region.dim())
+
+
+def _normalized(v):
+    """v / |v| with maths.normalized's 1e-12 floor on |v|^2."""
+    return v / torch.sqrt(torch.clamp_min(_dot(v, v), 1e-12))[..., None]
 
 
 def _sq_point_point(p, q):
@@ -135,6 +149,91 @@ def point_triangle_distance(p, t0, t1, t2, region=None):
 
 
 # ---------------------------------------------------------------------------
+# friction geometry (friction_geometry.cpp): closest-point weights and the
+# 2x3 tangent projection, per region
+# ---------------------------------------------------------------------------
+def _bary_point_edge(p, a, b):
+    ab = b - a
+    alpha = _dot(p - a, ab) / torch.clamp_min(_dot(ab, ab), _TINY)
+    return 1.0 - alpha, alpha
+
+
+def point_triangle_bary(p, t0, t1, t2, region):
+    """(..., 3) barycentric weights on (t0, t1, t2) of the closest point for
+    the given region; the face region uses the full (Ericson) form."""
+    u0, v0 = _bary_point_edge(p, t0, t1)
+    u1, v1 = _bary_point_edge(p, t1, t2)
+    u2, v2 = _bary_point_edge(p, t2, t0)
+    e0 = t1 - t0
+    e1 = t2 - t0
+    e2 = p - t0
+    d00, d01, d11 = _dot(e0, e0), _dot(e0, e1), _dot(e1, e1)
+    d20, d21 = _dot(e2, e0), _dot(e2, e1)
+    denom = torch.clamp_min(d00 * d11 - d01 * d01, _TINY)
+    fv = (d11 * d20 - d01 * d21) / denom
+    fw = (d00 * d21 - d01 * d20) / denom
+    fu = 1.0 - fv - fw
+    one, zz = torch.ones_like(fu), torch.zeros_like(fu)
+    cands = torch.stack([
+        torch.stack([one, zz, zz], -1),
+        torch.stack([zz, one, zz], -1),
+        torch.stack([zz, zz, one], -1),
+        torch.stack([u0, v0, zz], -1),
+        torch.stack([zz, u1, v1], -1),
+        torch.stack([v2, zz, u2], -1),
+        torch.stack([fu, fv, fw], -1),
+    ], dim=-2)
+    return _select_rows(cands, region, 7)
+
+
+def _proj_point_point(p, q):
+    # projection_matrix_point_point: the helper axis switches at n_z = 0.99
+    n = _normalized(p - q)
+    ez = torch.zeros_like(n)
+    ez[..., 2] = 1.0
+    ex = torch.zeros_like(n)
+    ex[..., 0] = 1.0
+    e = torch.where((n[..., 2] < 0.99)[..., None], ez, ex)
+    u = _normalized(_cross(e, n))
+    v = _normalized(_cross(u, n))
+    return torch.stack([u, v], dim=-2)
+
+
+def _proj_point_edge(p, a, b):
+    u = _normalized(b - a)
+    v = _normalized(_cross(u, p - a))
+    return torch.stack([u, v], dim=-2)
+
+
+def _proj_triangle(a, b, c):
+    v01 = a - c
+    v02 = b - c
+    u = _normalized(v01)
+    v = _normalized(_cross(_cross(v01, v02), u))
+    return torch.stack([u, v], dim=-2)
+
+
+def _proj_edge_edge(a, b, p, q):
+    u = _normalized(b - a)
+    v = _normalized(_cross(u, _cross(u, q - p)))
+    return torch.stack([u, v], dim=-2)
+
+
+def point_triangle_T(p, t0, t1, t2, region):
+    """(..., 2, 3) tangent projection for PT friction, per region."""
+    cands = torch.stack([
+        _proj_point_point(p, t0),
+        _proj_point_point(p, t1),
+        _proj_point_point(p, t2),
+        _proj_point_edge(p, t0, t1),
+        _proj_point_edge(p, t1, t2),
+        _proj_point_edge(p, t2, t0),
+        _proj_triangle(t0, t1, t2),
+    ], dim=-3)
+    return _select_rows(cands, region, 7)
+
+
+# ---------------------------------------------------------------------------
 # edge - edge
 # ---------------------------------------------------------------------------
 def edge_edge_region(ea0, ea1, eb0, eb1, parallel_tol=None):
@@ -212,6 +311,54 @@ def edge_edge_sq_distance(ea0, ea1, eb0, eb1, region=None, parallel_tol=None):
 def edge_edge_distance(ea0, ea1, eb0, eb1, region=None, parallel_tol=None):
     return torch.sqrt(torch.clamp_min(
         edge_edge_sq_distance(ea0, ea1, eb0, eb1, region, parallel_tol), _TINY))
+
+
+def edge_edge_params(ea0, ea1, eb0, eb1, region):
+    """(s, t) line parameters of the closest points for EE friction anchors:
+    the point-point and point-edge regions pin an endpoint parameter, the
+    edge-edge region takes the unclamped line-line solution (0.5 each when
+    the edges are parallel to the dtype's relative tolerance)."""
+    da = ea1 - ea0
+    db = eb1 - eb0
+    r = ea0 - eb0
+    a = _dot(da, da)
+    e = _dot(db, db)
+    f = _dot(db, r)
+    b = _dot(da, db)
+    c = _dot(da, r)
+    denom = a * e - b * b
+    degen = denom < _parallel_tol(da.dtype) * a * e
+    half = torch.full_like(a, 0.5)
+    s_ll = torch.where(degen, half,
+                       (b * f - c * e) / torch.where(degen, torch.ones_like(denom), denom))
+    t_ll = torch.where(degen, half, (b * s_ll + f) / torch.clamp_min(e, _TINY))
+    _, t_a0 = _bary_point_edge(ea0, eb0, eb1)
+    _, t_a1 = _bary_point_edge(ea1, eb0, eb1)
+    _, s_b0 = _bary_point_edge(eb0, ea0, ea1)
+    _, s_b1 = _bary_point_edge(eb1, ea0, ea1)
+    zero, one = torch.zeros_like(a), torch.ones_like(a)
+    # 0 EA0_EB0 (0,0); 1 EA0_EB1 (0,1); 2 EA1_EB0 (1,0); 3 EA1_EB1 (1,1);
+    # 4 EA_EB0 (eb0 on ea, 0); 5 EA_EB1 (eb1 on ea, 1); 6 EA0_EB (0, ea0 on
+    # eb); 7 EA1_EB (1, ea1 on eb); 8 EA_EB line-line
+    s_c = torch.stack([zero, zero, one, one, s_b0, s_b1, zero, one, s_ll], -1)
+    t_c = torch.stack([zero, one, zero, one, zero, one, t_a0, t_a1, t_ll], -1)
+    return _select(s_c, region, 9), _select(t_c, region, 9)
+
+
+def edge_edge_T(ea0, ea1, eb0, eb1, region):
+    """(..., 2, 3) tangent projection for EE friction, per region."""
+    cands = torch.stack([
+        _proj_point_point(ea0, eb0),
+        _proj_point_point(ea0, eb1),
+        _proj_point_point(ea1, eb0),
+        _proj_point_point(ea1, eb1),
+        _proj_point_edge(eb0, ea0, ea1),
+        _proj_point_edge(eb1, ea0, ea1),
+        _proj_point_edge(ea0, eb0, eb1),
+        _proj_point_edge(ea1, eb0, eb1),
+        _proj_edge_edge(ea0, ea1, eb0, eb1),
+    ], dim=-3)
+    return _select_rows(cands, region, 9)
 
 
 def edge_edge_mollifier(ea0, ea1, eb0, eb1, EA0, EA1, EB0, EB1):

@@ -1,12 +1,17 @@
 """Device-side contact pipeline of the fused solve: candidate lists, pair
-tables and the intersection oracle (dense path, frictionless).
+tables, lagged-friction tables and the intersection oracle (dense path).
 
 Port of the dense path of `stark_tpu/models/interactions/contact_engine.py`.
 The reference rebuilds contact tables from a proximity pass over
 x1 = x0 + dt*v1 at every energy evaluation (EnergyFrictionalContact.cpp:
-368-530) and asks an edge-triangle oracle whether a state is
-penetration-free (:774-799). The fused solve (solver/fused.py) keeps two
-frozen shells instead:
+368-530), freezes lagged friction anchors once per step from a dt = 0 pass
+(:531-773), and asks an edge-triangle oracle whether a state is
+penetration-free (:774-799). The friction tables (`friction_tables`) come
+from kernel I (`ops.friction_pairs`: every allowed pair with a nonzero mu
+and d <= dhat at the step-start state), routed per family through kernel E,
+with kernel J (`ops.friction_rows`) filling each row's anchors, tangent
+basis, mu and normal force. The fused solve (solver/fused.py) keeps two
+frozen contact shells:
 
   * broad_fn (the BROAD shell, rebuilt when the motion since its build
     exceeds 0.45*slack_b): bounding-ball pairs of every primitive kind over
@@ -43,6 +48,8 @@ from torch.func import vmap
 from ... import maths
 from ...ops.ball_wide import ball_wide
 from ...ops.compact import compact
+from ...ops.friction_pairs import friction_pairs_ee, friction_pairs_pt
+from ...ops.friction_rows import friction_rows_ee, friction_rows_pt
 from ...ops.narrow import ee_distance, pt_distance
 from ...ops.segment_triangle import segment_triangle_any
 
@@ -196,6 +203,7 @@ class ContactEngine:
         self.d_p_mesh = i64(pm)
         self.d_t_mesh = i64(tm)
         self.d_e_mesh = i64(em)
+        self.d_p_mesh32, self.d_t_mesh32, self.d_e_mesh32 = i32(pm), i32(tm), i32(em)
         self.d_sv_gid = i64(self.sv_gid)
         self.d_rv_body = i64(self.rv_body)
         self.d_rv_loc = torch.as_tensor(self.rv_loc, dtype=self.dtype, device=dev)
@@ -225,11 +233,17 @@ class ContactEngine:
                 full = {"pt": Np * max(Nt, 1), "ee": Ne * Ne,
                         "et": Ne * max(Nt, 1)}[kind]
                 h = min(2 * self._cap(mkey), max(full, 256))
-            else:   # family pair tables
+            elif name in ("f_pt", "f_ee"):
+                # kernel I's flat friction list of one kind, routed into the
+                # f_<stem> tables: their capacities together
+                h = sum(self._cap("f_" + s) for s in self._blocks()
+                        if s.startswith(name[2:]))
+            else:   # family pair tables (f_<stem>: the friction tables)
+                stem = name[2:] if name.startswith("f_") else name
                 h = {"pt_dd": 4 * n_sv, "pt_dr": 2 * n_sv,
                      "pt_rd": max(n_rv, n_ts), "pt_rr": n_rv,
                      "ee_dd": 4 * n_es, "ee_dr": max(n_er, n_es),
-                     "ee_rr": n_er}[name]
+                     "ee_rr": n_er}[stem]
             cap = 256
             while cap < h:
                 cap *= 2
@@ -239,8 +253,10 @@ class ContactEngine:
     def set_caps(self, caps: Dict[str, int]):
         """Start from given capacities (e.g. the JAX engine's, carried over
         by utils/from_jax.py); unknown names are ignored."""
+        stems = self._blocks()
+        known = {"w_pt", "w_ee", "w_et", "m_pt", "m_ee", "im_et", "f_pt", "f_ee"}
         for k, v in caps.items():
-            if k in ("w_pt", "w_ee", "w_et", "m_pt", "m_ee", "im_et") or k in self._blocks():
+            if k in known or k in stems or (k.startswith("f_") and k[2:] in stems):
                 self._caps[k] = int(v)
 
     def _blocks(self):
@@ -284,6 +300,19 @@ class ContactEngine:
         if self._ee_stems():
             keys.append("n_live_ee")
         return keys
+
+    def friction_count_keys(self):
+        """Count keys of friction_tables: kernel I's flat lists, then the
+        friction family tables."""
+        flat = [k for k in ("f_pt", "f_ee")
+                if any(s.startswith(k[2:]) for s in self._blocks())]
+        return flat + ["f_" + stem for stem in self._blocks()]
+
+    def friction_enabled_now(self) -> bool:
+        """Friction tables are non-trivial: friction on and some pair mu."""
+        return (self.model.global_params.friction_enabled
+                and self.model.stark.settings.simulation.init_frictional_contact
+                and any(v != 0.0 for v in self.model.pair_mu.values()))
 
     def isect_on(self) -> bool:
         return self.model.global_params.intersection_test_enabled
@@ -357,9 +386,23 @@ class ContactEngine:
             return 0.0
         return float(np.max(np.linalg.norm(self.rv_loc, axis=1)))
 
+    def _mu_mat(self):
+        """(M, M) Coulomb mu between the contact meshes, symmetric."""
+        nm = len(self.model.contact_thicknesses)
+        mu = np.zeros((nm, nm))
+        for (a, b), v in self.model.pair_mu.items():
+            mu[a, b] = mu[b, a] = v
+        return torch.as_tensor(mu, dtype=self.dtype, device=self.device)
+
     def glob_entries(self):
-        return {"contact_k": torch.as_tensor(self.model.contact_stiffness,
-                                             dtype=self.dtype, device=self.device)}
+        # mu is an argument of every solve, so set_friction takes effect at
+        # the next step
+        def t(x):
+            return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+        return {"contact_k": t(self.model.contact_stiffness),
+                "friction_epsv": t(self.model.global_params.friction_stick_slide_threshold),
+                "mu_mat": self._mu_mat()}
 
     # ------------------------------------------------------------------
     # balls and compactions
@@ -400,29 +443,35 @@ class ContactEngine:
     # ------------------------------------------------------------------
     # routing into family pair tables
     # ------------------------------------------------------------------
-    def _route_pt(self, q, t, valid, dhat_rows):
+    def _route_pt(self, q, t, valid, dhat_rows, cap_pfx="", d_rows=None):
+        """Route flat PT rows into the family tables (capacities
+        cap_pfx + stem): {stem: (p_loc, t_loc, active, dhat, d or None,
+        count)}, each stem's rows in the flat list's order."""
         out = {}
         ps = q < self.n_sv
         ts_ = t < self.n_ts
         masks = {"pt_dd": ps & ts_, "pt_dr": ps & ~ts_,
                  "pt_rd": ~ps & ts_, "pt_rr": ~ps & ~ts_}
         for stem in self._pt_stems():
-            cap = self._cap(stem)
-            sel, cnt = compact(valid & masks[stem], cap, "route_" + stem)
+            cap = self._cap(cap_pfx + stem)
+            sel, cnt = compact(valid & masks[stem], cap, "route_" + cap_pfx + stem)
             sl = sel.long()
             active = torch.arange(cap, device=q.device) < torch.clamp_max(cnt, cap)
             # rows past the count (sel 0) may be of another kind: index 0
             p_loc = torch.where(active, q[sl].long() - (0 if stem[3] == "d" else self.n_sv), 0)
             t_loc = torch.where(active, t[sl].long() - (0 if stem[4] == "d" else self.n_ts), 0)
-            out[stem] = (p_loc, t_loc, active, dhat_rows[sl], cnt)
+            d_sel = None if d_rows is None else d_rows[sl]
+            out[stem] = (p_loc, t_loc, active, dhat_rows[sl], d_sel, cnt)
         return out
 
-    def _route_ee(self, a, b, valid, dhat_rows):
+    def _route_ee(self, a, b, valid, dhat_rows, cap_pfx="", d_rows=None):
+        """As _route_pt for EE rows; ee_dr rows come out as (rigid edge,
+        soft edge), ee_dd and ee_rr in the deduped (a, b) order."""
         out = {}
         as_ = a < self.n_es
         bs_ = b < self.n_es
         for stem in self._ee_stems():
-            cap = self._cap(stem)
+            cap = self._cap(cap_pfx + stem)
             if stem == "ee_dd":
                 mask, aa, bb = as_ & bs_, a, b
             elif stem == "ee_rr":
@@ -431,12 +480,13 @@ class ContactEngine:
                 mask = as_ != bs_
                 aa = torch.where(as_, b, a)
                 bb = torch.where(as_, a, b)
-            sel, cnt = compact(valid & mask, cap, "route_" + stem)
+            sel, cnt = compact(valid & mask, cap, "route_" + cap_pfx + stem)
             sl = sel.long()
             active = torch.arange(cap, device=a.device) < torch.clamp_max(cnt, cap)
             a_loc = torch.where(active, aa[sl].long() - (0 if stem == "ee_dd" else self.n_es), 0)
             b_loc = torch.where(active, bb[sl].long() - (self.n_es if stem == "ee_rr" else 0), 0)
-            out[stem] = (a_loc, b_loc, active, dhat_rows[sl], cnt)
+            d_sel = None if d_rows is None else d_rows[sl]
+            out[stem] = (a_loc, b_loc, active, dhat_rows[sl], d_sel, cnt)
         return out
 
     def _pt_family_data(self, stem, p_idx, t_idx, active, dhat):
@@ -543,7 +593,7 @@ class ContactEngine:
             d, valid = pt_distance(Vcat, Vcat, self.d_tris_all, q, t, act, None,
                                    dhat + slack_p)
             counts["n_live_pt"] = torch.sum((act & (d <= dhat)).to(torch.int32))
-            for stem, (p, tl, a2, dh, cnt) in self._route_pt(q, t, valid, dhat).items():
+            for stem, (p, tl, a2, dh, _d, cnt) in self._route_pt(q, t, valid, dhat).items():
                 out["contact_" + stem] = self._pt_family_data(stem, p, tl, a2, dh)
                 counts[stem] = cnt
         if "ee" in mcands and self._ee_stems():
@@ -554,10 +604,75 @@ class ContactEngine:
                                    self.model.edge_edge_cross_norm_sq_cutoff, act,
                                    dhat + slack_p)
             counts["n_live_ee"] = torch.sum((act & (d <= dhat)).to(torch.int32))
-            for stem, (al, bl, a2, dh, cnt) in self._route_ee(a, b, valid, dhat).items():
+            for stem, (al, bl, a2, dh, _d, cnt) in self._route_ee(a, b, valid, dhat).items():
                 out["contact_" + stem] = self._ee_family_data(stem, al, bl, a2, dh)
                 counts[stem] = cnt
         return out, counts
+
+    # ------------------------------------------------------------------
+    # lagged friction (once per step, from the dt = 0 positions)
+    # ------------------------------------------------------------------
+    def friction_tables(self, Vs, Vr, th, mu_mat, k):
+        """The friction family tables {friction_<stem>: {conn, rows}} and
+        their counts from the world positions (Vs, Vr) of the step start:
+        every allowed pair whose meshes have a nonzero mu and whose distance
+        is within dhat (kernel I over the dense PT and EE grids), routed per
+        family in row-major order (kernel E), with per-row anchors (bary, or
+        s and t), tangent basis T, mu and normal force fn (kernel J) from
+        the barrier force at the frozen distance (EnergyFrictionalContact.
+        cpp:531-773). Grids over 2^27 pairs (the JAX package's hash-grid
+        branch, P9) were refused when the engine was built."""
+        btype = self.model.ipc_barrier_type
+        out, counts = {}, {}
+        Vcat = self._vcat(Vs, Vr)
+        dev = Vcat.device
+
+        def flat(cap, cnt):
+            return torch.arange(cap, device=dev) < torch.clamp_max(cnt, cap)
+
+        if self._pt_stems():
+            cap = self._cap("f_pt")
+            q, t, d, dhat, cnt = friction_pairs_pt(
+                Vcat, self.d_tris_all, self.d_pt_allowed, self.d_p_mesh32,
+                self.d_t_mesh32, mu_mat, th, cap)
+            counts["f_pt"] = cnt
+            routed = self._route_pt(q, t, flat(cap, cnt), dhat, cap_pfx="f_", d_rows=d)
+            for stem, (p, tl, act, dh, ds, n) in routed.items():
+                counts["f_" + stem] = n
+                fd = self._pt_family_data(stem, p, tl, act, dh)
+                qg = p + (0 if stem[3] == "d" else self.n_sv)
+                tg = tl + (0 if stem[4] == "d" else self.n_ts)
+                _reg, bary, T, mu, fn = friction_rows_pt(
+                    Vcat, self.d_tris_all, qg, tg, n, ds, dh, self.d_p_mesh32,
+                    self.d_t_mesh32, mu_mat, k, btype)
+                fd["rows"].update(bary=bary, T=T, mu=mu, fn=fn)
+                out["friction_" + stem] = fd
+        if self._ee_stems():
+            cap = self._cap("f_ee")
+            ptol = self.model.edge_edge_cross_norm_sq_cutoff
+            a, b, d, dhat, cnt = friction_pairs_ee(
+                Vcat, self.d_edges_all, self.d_ee_allowed, self.d_e_mesh32, mu_mat, th,
+                cap, ptol)
+            counts["f_ee"] = cnt
+            routed = self._route_ee(a, b, flat(cap, cnt), dhat, cap_pfx="f_", d_rows=d)
+            for stem, (al, bl, act, dh, ds, n) in routed.items():
+                counts["f_" + stem] = n
+                fd = self._ee_family_data(stem, al, bl, act, dh)
+                ag = al + (0 if stem == "ee_dd" else self.n_es)
+                bg = bl + (self.n_es if stem == "ee_rr" else 0)
+                _reg, st, T, mu, fn = friction_rows_ee(
+                    Vcat, self.d_edges_all, ag, bg, n, ds, dh, self.d_e_mesh32, mu_mat,
+                    k, btype, ptol)
+                fd["rows"].update(s=st[:, 0], t=st[:, 1], T=T, mu=mu, fn=fn)
+                out["friction_" + stem] = fd
+        return out, counts
+
+    def step_start_world(self, state):
+        """(Vs, Vr) at dt = 0: x1 = x0 and the bodies at (t0, q0), the
+        positions the lagged anchors freeze at."""
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        u = torch.zeros((self.layout.n_blocks, 3), dtype=self.dtype, device=self.device)
+        return self.world_from_u(u, state, zero)
 
     # ------------------------------------------------------------------
     # intersection oracle

@@ -60,6 +60,14 @@ _SIGNATURES = {
     "stk_pt_distance": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "stk_ee_distance": [_P, _P, _P, _P, _I, _D, _P, _P, _P, _P, _P],
     "stk_segment_triangle_any": [_P, _P, _P, _P, _P, _I, _P, _D, _P, _P, _P],
+    "stk_friction_pairs_pt": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
+                              _P, _P, _P, _P, _P],
+    "stk_friction_pairs_ee": [_P, _P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P,
+                              _P, _P, _P, _P],
+    "stk_friction_rows_pt": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                             _P, _P, _P, _P, _P, _P],
+    "stk_friction_rows_ee": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _D,
+                             _P, _P, _P, _P, _P, _P],
 }
 # entry points without a floating-point operand: one symbol, no suffix
 _UNTYPED = {

@@ -1,8 +1,8 @@
 """Simulation facade: the single user entry point.
 
 Port of `stark_tpu/simulation.py`: it owns the core (`Stark`), the
-deformables, the rigid bodies, the interactions (frictionless IPC contact)
-and the presets, exposes run() / run_one_time_step() / add_time_event, and
+deformables, the rigid bodies, the interactions (IPC contact with lagged
+friction) and the presets, exposes run() / run_one_time_step() / add_time_event, and
 is the data manager: it freezes all static potential family tables onto the
 device at the first step, regenerates dirty families (parameter changes,
 animated targets, stiffness hardening), builds the contact engine, and wires

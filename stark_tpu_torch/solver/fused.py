@@ -23,12 +23,19 @@ candidate topology:
 The initial state is tested at iteration 0 (code 2) and the converged state
 after the loop (code 9, InvalidConvergedState).
 
+Lagged friction (`use_ff`: the engine is live and friction_enabled_now):
+the friction tables are built once per solve from the dt = 0 positions
+(engine.friction_tables: kernels I, E and J), their counts join the count
+vector, and they join every Newton iteration's tables; their rows enter
+the live pool with the contact rows.
+
 Host syncs (`ev.to_host`, counted in `host_syncs`): one per loop exit test,
 per CG iteration, per Armijo probe and per [inv] trial, plus the two shell
-guards (need_b, need_p) per Newton iteration with contact and one read of
-the pair tables' counts per pair build (the tables are cut to their live
-rows: JAX evaluates every padded row, the port only the real pairs). Removing them
-(CUDA graphs with a device-side done flag) is ROADMAP K12.
+guards (need_b, need_p) per Newton iteration with contact, one read of
+the pair tables' counts per pair build and one of the friction tables'
+counts per solve (the tables are cut to their live rows: JAX evaluates
+every padded row, the port only the real pairs). Removing them (CUDA graphs
+with a device-side done flag) is ROADMAP K12.
 
 Result codes (match SolverReturn):
   1 Successful, 2 InvalidInitialState, 3 TooManyIterations,
@@ -45,13 +52,28 @@ from .pcg import solve_pcg
 BASE_COUNT_KEYS = ["hvp_pool", "direct_slots"]
 
 
-def count_keys_of(engine):
-    """Count keys of one solve: the engine's candidate and pair keys, then
-    the live-pool count (direct_slots stays 0: the port sizes no slots)."""
+def count_keys_of(engine, use_ff: bool = False):
+    """Count keys of one solve: the engine's candidate and pair keys (and
+    the friction tables' with use_ff), then the live-pool count
+    (direct_slots stays 0: the port sizes no slots)."""
     keys = []
     if engine is not None:
         keys = engine.broad_count_keys() + engine.pair_count_keys()
+        if use_ff:
+            keys += engine.friction_count_keys()
     return list(dict.fromkeys(keys)) + list(BASE_COUNT_KEYS)
+
+
+def uses_friction(engine) -> bool:
+    """Whether the solve builds the lagged friction tables."""
+    return engine is not None and engine.friction_enabled_now()
+
+
+def _count_key(table_name: str) -> str:
+    """The count key of a family table: contact_<stem> -> <stem>,
+    friction_<stem> -> f_<stem>."""
+    kind, stem = table_name.split("_", 1)
+    return stem if kind == "contact" else "f_" + stem
 
 
 def build_fused_solve(nm, engine=None):
@@ -76,7 +98,8 @@ def build_fused_solve(nm, engine=None):
                   and n_blocks <= nm._direct_max_blocks)
     to_host = ev.to_host
     to_host_vec = ev.to_host_vec
-    count_keys = count_keys_of(engine)
+    use_ff = uses_friction(engine)
+    count_keys = count_keys_of(engine, use_ff)
     key_slot = {k: i for i, k in enumerate(count_keys)}
     if engine is not None:
         r_max = engine.max_rigid_lever()
@@ -136,12 +159,12 @@ def build_fused_solve(nm, engine=None):
 
         def trim_tables(tables, cnt):
             """The family tables cut to their live rows (one host read of
-            the stems' counts per pair build): empty families drop out, so
-            energies, derivatives and the live pool run over real pairs
-            only. Rows past the count are inactive padding, so the values
-            are those of the full tables."""
+            their counts per build): empty families drop out, so energies,
+            derivatives and the live pool run over real pairs only. Rows
+            past the count are inactive padding, so the values are those of
+            the full tables."""
             names = list(tables)
-            n = to_host_vec(torch.stack([cnt[k[len("contact_"):]] for k in names]))
+            n = to_host_vec(torch.stack([cnt[_count_key(k)] for k in names]))
             out = {}
             for name, c in zip(names, n.tolist()):
                 fd = tables[name]
@@ -156,6 +179,23 @@ def build_fused_solve(nm, engine=None):
                 return torch.zeros((), dtype=torch.bool, device=dev)
             Vs, Vr = world(u)
             return engine.isect_hit(Vs, Vr, icands)
+
+        friction_tabs = {}
+        if use_ff:
+            # the lagged anchors freeze at the step-start state (x1 = x0,
+            # bodies at t0, q0), as the reference's before_time_step pass;
+            # mu and the stiffness are glob arguments
+            Vs0, Vr0 = engine.step_start_world(eng_state)
+            ff_tables, ff_counts = engine.friction_tables(
+                Vs0, Vr0, th, glob["mu_mat"], glob["contact_k"])
+            counts_max = fold(counts_max, ff_counts)
+            friction_tabs = trim_tables(ff_tables, ff_counts)
+
+        def full_data(tables):
+            data = dict(static_data)
+            data.update(tables)
+            data.update(friction_tabs)
+            return data
 
         u = u0
         it = 0
@@ -182,7 +222,7 @@ def build_fused_solve(nm, engine=None):
         bcands = icands = Vb = Vp = None
         slack_b = fz()
         tables = {}
-        data = static_data
+        data = full_data({})
         egh_csr = None
 
         while not done and it < params["max_iterations"]:
@@ -210,8 +250,7 @@ def build_fused_solve(nm, engine=None):
                     tables, cnt = engine.pairs_fn(Vs, Vr, th, bcands, slack_p)
                     Vp = (Vs, Vr)
                     counts_max = fold(counts_max, cnt)
-                    data = dict(static_data)
-                    data.update(trim_tables(tables, cnt))
+                    data = full_data(trim_tables(tables, cnt))
                     egh_csr = ev.egh_csr(data)
                 if it == 0:
                     init_bad = isect_hit(u, icands)

@@ -1,15 +1,19 @@
 """Projected Newton minimizer: host side of the fused solve.
 
 Port of the fused path of `stark_tpu/solver/newton.py`
-(`NewtonsMethod.__init__`, :77-178, and `_solve_fused`, :252-460, without the
-friction branch): it builds the evaluators, sizes the contact engine's
-slacks and the live-pool capacity, runs the fused solve of one time step
-(solver/fused.py), pulls the DOFs, the 16-float stats vector and the count
-vector back in one transfer, and maps the outcome code to a `SolverReturn`
-with the same logger keys. A count over its capacity bumps the capacity and
-solves the step again from the same state (logger key `fused_retraces`,
-named after the JAX package's re-trace); the capacities are kept in memory
-only (a persistent cache is ROADMAP Queue 1 P10).
+(`NewtonsMethod.__init__`, :77-178, and `_solve_fused`, :252-460): it builds
+the evaluators, sizes the contact engine's slacks and the live-pool
+capacity, runs the fused solve of one time step (solver/fused.py), pulls the
+DOFs, the 16-float stats vector and the count vector back in one transfer,
+and maps the outcome code to a `SolverReturn` with the same logger keys. A
+count over its capacity (contact lists, friction tables, live pool) bumps
+the capacity and solves the step again from the same state (logger key
+`fused_retraces`, named after the JAX package's re-trace); the capacities
+are kept in memory only (a persistent cache is ROADMAP Queue 1 P10).
+
+Lagged friction: the fused solve builds the step's friction tables itself
+while `ContactEngine.friction_enabled_now`; the solve is rebuilt when that
+flips (set_friction after a frictionless step changes its count keys).
 
 The staged host-driven solver, the other projection modes, the DirectLLT
 linear solver and the line-search failure dump are ROADMAP Queue 1 P5 and
@@ -94,6 +98,7 @@ class NewtonsMethod:
         self.device = torch.device(device)
         self.stats = SolveStats()
         self._fused = None
+        self._fused_use_ff = False
         self._fused_count_keys = []
         # dense Newton-Schulz preconditioner up to this many blocks
         # (assembly.ns_refresh); block-Jacobi above
@@ -143,6 +148,11 @@ class NewtonsMethod:
         builds, the n_live_* counts)."""
         return sum(c for k, c in self._last_counts.items() if k.startswith("n_live_"))
 
+    def friction_rows(self) -> int:
+        """Lagged friction pairs of the last solve (kernel I's counts of the
+        pairs within dhat at the step start); 0 when the solve built none."""
+        return self._last_counts.get("f_pt", 0) + self._last_counts.get("f_ee", 0)
+
     # ------------------------------------------------------------------
     def _fused_eligible(self) -> bool:
         s = self.settings
@@ -155,17 +165,21 @@ class NewtonsMethod:
                 and not cb.is_converged)
 
     def _build_fused(self):
-        from .fused import build_fused_solve
-
-        self._fused, self._fused_count_keys = build_fused_solve(self, self._engine())
-
-    def _solve_fused(self) -> SolverReturn:
-        s = self.settings
-        self.stats = SolveStats()
-        if self._fused is None:
-            self._build_fused()
+        from .fused import build_fused_solve, uses_friction
 
         engine = self._engine()
+        self._fused_use_ff = uses_friction(engine)
+        self._fused, self._fused_count_keys = build_fused_solve(self, engine)
+
+    def _solve_fused(self) -> SolverReturn:
+        from .fused import uses_friction
+
+        s = self.settings
+        self.stats = SolveStats()
+        engine = self._engine()
+        if self._fused is None or uses_friction(engine) != self._fused_use_ff:
+            self._build_fused()
+
         data_static = self.get_static_data()
         use_direct = (s.projection_mode == ProjectionToPD.ProjectedNewton
                       and self.n_blocks <= self._direct_max_blocks)
@@ -239,6 +253,7 @@ class NewtonsMethod:
         st.n_hessians = int(packed[8])
         self.logger.add_and_append("broad_rebuilds", int(packed[12]))
         self.logger.add_and_append("live_contact_pairs", self.live_contact_pairs())
+        self.logger.add_and_append("friction_rows", self.friction_rows())
         self.logger.add_and_append("pair_rebuilds", int(packed[13]))
         self.logger.append("ns_q", float(packed[14]))
         self.logger.add_and_append("ns_cold_restarts", int(packed[15]))

@@ -5,10 +5,13 @@ import math
 
 
 def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
-                       adaptive: bool = True, name: str = "spinning_box_cloth"):
+                       adaptive: bool = True, name: str = "spinning_box_cloth",
+                       mu: float = 0.0):
     """bench.py's spinning_box_cloth: an n x n Cotton_Fabric cloth (0.4 m)
     falling on a fixed 8 cm box that sinks and turns (90 deg/s), IPC contact
-    at 2 mm thickness. Returns (sim, cloth handler, spin(t)); the caller
+    at 2 mm thickness. With mu > 0, Coulomb friction mu between the cloth
+    and the box and of the cloth with itself (the upstream examples' cloth
+    friction is 1.0). Returns (sim, cloth handler, spin(t)); the caller
     either registers spin as a time event or calls it before each step."""
     from stark_tpu_torch import Settings, Simulation
     from stark_tpu_torch.models.interactions.contact import ContactGlobalParams
@@ -30,6 +33,9 @@ def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
     box = sim.presets.rigidbodies.add_box("box", 1.0, 0.08)
     box.rigidbody.add_translation([0.0, 0.0, -0.08])
     fix = sim.rigidbodies.add_constraint_fix(box.rigidbody)
+    if mu > 0.0:
+        cloth.contact.set_friction(box.contact, mu)
+        cloth.contact.set_friction(cloth.contact, mu)
 
     def spin(t):
         fix.set_transformation([0.0, 0.0, -0.08 - 0.1 * math.sin(t)],

@@ -22,8 +22,9 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 def tables_from_numpy(static: Dict[str, Dict], dtype: torch.dtype = torch.float64,
                       device="cpu") -> Dict[str, Dict]:
     """{name: {"conn": (E, a), "rows": {...}}} numpy tables (the JAX
-    Simulation's `_device_data`, pulled to numpy) -> the port's device
-    tables: float leaves in `dtype`, integer leaves int64, same order."""
+    Simulation's `_device_data`, or its contact engine's friction tables,
+    pulled to numpy) -> the port's device tables: float leaves in `dtype`,
+    integer leaves int64, same order."""
     return {name: {"conn": _tensor(fd["conn"], dtype, device),
                    "rows": {k: _tensor(v, dtype, device)
                             for k, v in fd["rows"].items()}}
@@ -54,14 +55,19 @@ def set_rigid_state(rb_dyn, t0, q0, v1=None, w1=None):
         rb_dyn.w1 = _tensor(np.reshape(w1, (-1, 3)), rb_dyn.dtype, rb_dyn.device)
 
 
-def set_contact_state(contact, thicknesses, stiffness: float, caps=None):
+def set_contact_state(contact, thicknesses, stiffness: float, caps=None,
+                      pair_mu=None):
     """Give the port's contact model (`Simulation.interactions.contact`) the
-    per-mesh contact thicknesses, the running barrier stiffness and, once the
-    engine exists (after the first step's freeze), the list capacities of the
-    JAX engine (`engine._caps`; the names the port does not have are
-    ignored)."""
+    per-mesh contact thicknesses, the running barrier stiffness, the
+    per-mesh-pair Coulomb mu (the JAX model's `pair_mu`, {(a, b): mu}; the
+    port's `mu_mat` glob entry is built from it) and, once the engine exists
+    (after the first step's freeze), the list capacities of the JAX engine
+    (`engine._caps`, the f_ friction tables' included; the names the port
+    does not have are ignored)."""
     contact.contact_thicknesses = [float(t) for t in np.asarray(thicknesses).ravel()]
     contact.contact_stiffness = float(stiffness)
+    if pair_mu is not None:
+        contact.pair_mu = {(int(a), int(b)): float(v) for (a, b), v in pair_mu.items()}
     if caps:
         eng = contact.engine()
         if eng is None:

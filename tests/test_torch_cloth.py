@@ -220,7 +220,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item; the
-    rigid bodies (P2) and frictionless contact (P3) are ported."""
+    rigid bodies (P2), contact (P3) and friction (P4) are ported."""
     contact_on = stark_tpu_torch.Settings()
     contact_on.device.device = "cpu"
     assert contact_on.simulation.init_frictional_contact

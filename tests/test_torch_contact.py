@@ -1,4 +1,5 @@
-"""The port's frictionless IPC contact against `stark_tpu`.
+"""The port's IPC contact barriers against `stark_tpu` (friction:
+tests/test_torch_friction*.py).
 
 Kernel twins first (compaction, PT / EE distances, segment-triangle
 intersection), then the contact engine's lists and pair tables on one frozen
@@ -455,10 +456,11 @@ def _scene_settings(name, dt=1 / 100):
 
 
 def test_fd_contact_energies():
-    """Port of tests/test_contact.py::test_fd_contact_energies (without its
-    friction pair, ROADMAP Queue 1 P4): live PT pairs between two cloths
-    1.5 mm apart, and the gradient of the whole potential against central
-    differences of its energy."""
+    """Port of tests/test_contact.py::test_fd_contact_energies (its friction
+    half is tests/test_torch_friction.py::test_fd_contact_energies_with_
+    friction): live PT pairs between two cloths 1.5 mm apart, and the
+    gradient of the whole potential against central differences of its
+    energy."""
     P, _C = _contact_mods(stark_tpu_torch)
     sim = stark_tpu_torch.Simulation(_scene_settings("fd_contact"))
     p = P.SurfaceParams.Cotton_Fabric()
@@ -550,17 +552,10 @@ def test_rigid_box_drops_on_fixed_box():
 
 
 def test_unported_contact_paths_raise():
-    """Friction (P4) and a dense grid over 2^27 pairs (P9) raise, naming
-    their ROADMAP item."""
+    """A dense grid over 2^27 pairs (the hash-grid broad phase, P9) raises,
+    naming its ROADMAP item. (Friction, P4, is ported:
+    tests/test_torch_friction*.py.)"""
     P, C = _contact_mods(stark_tpu_torch)
-    sim = stark_tpu_torch.Simulation(_scene_settings("friction"))
-    sim.interactions.contact.global_params.default_contact_thickness = 0.001
-    a = sim.presets.deformables.add_surface_grid(
-        "", (0.1, 0.1), (2, 2), P.SurfaceParams.Cotton_Fabric())
-    b = sim.presets.rigidbodies.add_box("", 1.0, 0.05)
-    a.contact.set_friction(b.contact, 0.5)
-    with pytest.raises(NotImplementedError, match="P4"):
-        sim.run_one_time_step()
     from stark_tpu_torch.models.interactions import contact_engine as ce
     old = ce.GRID_PAIR_THRESHOLD
     try:

@@ -1,4 +1,4 @@
-"""Kernels A-H on a CUDA card against their plain twins, and two small
+"""Kernels A-J on a CUDA card against their plain twins, and three small
 scenes on the card against the port on the CPU.
 
 These tests need a card and skip without one. On a machine with a card
@@ -17,6 +17,7 @@ import torch
 from stark_tpu_torch.collision import narrow_phase as nph
 from stark_tpu_torch.ops import ball_wide as bw, compact as cp, narrow as nw
 from stark_tpu_torch.ops import block3, build, hvp_bucket as hb, pd_project as pd
+from stark_tpu_torch.ops import friction_pairs as fp, friction_rows as fr
 from stark_tpu_torch.ops import segment_reduce as sr, segment_triangle as st
 
 pytestmark = pytest.mark.cuda
@@ -234,6 +235,188 @@ def test_segment_triangle_any_matches_twin(dev, dtype):
         assert bool(out) == bool(hits[r]), r
 
 
+def _nudge(x, k):
+    """x moved by k ulps (down for k < 0)."""
+    to = torch.full_like(x, float("inf") if k > 0 else float("-inf"))
+    for _ in range(abs(k)):
+        x = torch.nextafter(x, to)
+    return x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["pt", "ee"])
+@pytest.mark.parametrize("cap", [40, 100000])
+def test_friction_pairs_matches_twin(dev, dtype, kind, cap):
+    """Kernel I: the same kept pairs in the same row-major order as the
+    twin on the CPU, and the exact count past the capacity. Each query row's
+    nearest allowed pair is placed at d = dhat, and 1 and 3 ulps on either
+    side of it, through the query's own thickness (every primitive is its
+    own mesh; the targets' thickness is 0); some mesh pairs have mu = 0."""
+    rng = np.random.default_rng(8)
+    V = torch.as_tensor(0.05 * rng.normal(size=(300, 3)), dtype=dtype)
+    if kind == "pt":
+        nq, nt = 300, 250
+        table = torch.as_tensor(rng.integers(0, 300, size=(nt, 3)), dtype=torch.int32)
+        mesh_q = torch.arange(nq, dtype=torch.int32)
+        mesh_t = torch.arange(nq, nq + nt, dtype=torch.int32)
+        M = nq + nt
+    else:
+        nq = nt = 280
+        table = torch.as_tensor(rng.integers(0, 300, size=(nt, 2)), dtype=torch.int32)
+        table[:, 1] = torch.where(table[:, 1] == table[:, 0], (table[:, 0] + 1) % 300,
+                                  table[:, 1])
+        mesh_q = mesh_t = torch.arange(nq, dtype=torch.int32)
+        M = nq
+    allowed = torch.as_tensor(rng.random((nq, nt)) < 0.8)
+    if kind == "ee":   # queries are the first 140 edges, targets the rest
+        allowed[140:] = False
+        allowed[:, :140] = False
+    mu = torch.ones((M, M), dtype=dtype)
+    mu[5] = mu[:, 5] = 0.0
+    mu[9, M - 1] = mu[M - 1, 9] = 0.0
+    tq = table.long()
+    if kind == "pt":
+        d_all = nph.point_triangle_distance(V[:, None], V[tq[:, 0]][None], V[tq[:, 1]][None],
+                                            V[tq[:, 2]][None])
+    else:
+        d_all = nph.edge_edge_distance(V[tq[:, 0]][:, None], V[tq[:, 1]][:, None],
+                                       V[tq[:, 0]][None], V[tq[:, 1]][None])
+    rows = torch.nonzero(allowed.any(1)).reshape(-1)
+    j = torch.argmin(torch.where(allowed, d_all, torch.inf), dim=1)[rows]
+    th = torch.zeros(M, dtype=dtype)
+    steps = torch.as_tensor(rng.choice([-3, -1, 0, 1, 3], size=rows.numel()))
+    d_near = d_all[rows, j]
+    for k in (-3, -1, 0, 1, 3):
+        sel = steps == k
+        th[mesh_q[rows[sel]].long()] = _nudge(d_near[sel], k)
+    args = (V, table, allowed.to(torch.uint8),
+            *((mesh_q, mesh_t) if kind == "pt" else (mesh_q,)), mu, th, cap)
+    plain = fp.friction_pairs_pt_plain if kind == "pt" else fp.friction_pairs_ee_plain
+    kernel = fp.friction_pairs_pt if kind == "pt" else fp.friction_pairs_ee
+    ref = plain(*args)
+    before = build.launches[f"friction_pairs[{kind}]"]
+    out = kernel(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))
+    torch.cuda.synchronize()
+    assert build.launches[f"friction_pairs[{kind}]"] == before + 1
+    n = int(ref[4])
+    assert int(out[4]) == n > 100
+    assert torch.equal(out[0].cpu(), ref[0]) and torch.equal(out[1].cpu(), ref[1])
+    assert torch.equal(out[3].cpu(), ref[3])
+    eps = torch.finfo(dtype).eps
+    assert torch.all((out[2].cpu() - ref[2]).abs() <= 64 * eps * (1 + V.abs().max()))
+    if cap > n:
+        kept = set((ref[0].long() * nt + ref[1].long())[:n].tolist())
+        for r, jj, k in zip(rows.tolist(), j.tolist(), steps.tolist()):
+            if mu[mesh_q[r], mesh_t[jj]] != 0:
+                assert (r * nt + jj in kept) == (k >= 0), (r, k)
+
+
+def _pt_row_geometry(rng, n):
+    """Point-triangle rows in every region, on a vertex (a zero point-point
+    direction) and straight above one (the n_z >= 0.99 axis)."""
+    t0 = rng.normal(size=(n, 3))
+    t1 = t0 + rng.normal(size=(n, 3))
+    t2 = t0 + rng.normal(size=(n, 3))
+    p = 2.0 * rng.normal(size=(n, 3))
+    k = n // 8
+    w = rng.dirichlet([1.0, 1.0, 1.0], size=k)
+    p[:k] = np.einsum("ki,kij->kj", w, np.stack([t0[:k], t1[:k], t2[:k]], 1)) \
+        + 0.1 * rng.normal(size=(k, 3))
+    p[k:2 * k] = t1[k:2 * k] + 0.02 * rng.normal(size=(k, 3))
+    p[2 * k] = t0[2 * k]
+    p[2 * k + 1] = t2[2 * k + 1] + np.array([0.0, 0.0, 0.5])
+    return np.concatenate([p, t0, t1, t2])
+
+
+def _ee_row_geometry(rng, n):
+    """Edge pairs in every region, exactly parallel pairs, and crossing
+    pairs at sin^2 of the angle ~ 1e-5 (the line-line region, with the
+    degenerate parameter branch in float32 when the classifier's cutoff is
+    below the dtype's default 1e-4)."""
+    a0 = rng.normal(size=(n, 3))
+    a1 = a0 + rng.normal(size=(n, 3))
+    b0 = rng.normal(size=(n, 3))
+    b1 = b0 + rng.normal(size=(n, 3))
+    k = n // 8
+    axis = np.eye(3)[rng.integers(0, 3, k)]
+    a0[:k] = rng.integers(-4, 4, (k, 3))
+    a1[:k] = a0[:k] + rng.integers(1, 4, (k, 1)) * axis
+    b0[:k] = a0[:k] + rng.integers(-2, 3, (k, 3))
+    b1[:k] = b0[:k] + (rng.integers(-3, 4, (k, 1)) + 0.5) * axis
+    dl = np.sqrt(1e-5)
+    R = np.linalg.qr(rng.normal(size=(k, 3, 3)))[0]
+    h = rng.uniform(0.01, 0.1, (k, 1))
+    loc = np.stack([[-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+    a0[k:2 * k], a1[k:2 * k] = [np.einsum("kij,j->ki", R, x) for x in loc]
+    b0[k:2 * k] = np.einsum("kij,kj->ki", R, np.concatenate(
+        [-np.ones((k, 1)), np.full((k, 1), dl), h], 1))
+    b1[k:2 * k] = np.einsum("kij,kj->ki", R, np.concatenate(
+        [np.ones((k, 1)), np.full((k, 1), -dl), h], 1))
+    return np.concatenate([a0, a1, b0, b1]), k
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("barrier", ["Cubic", "Log"])
+def test_friction_rows_matches_twin(dev, dtype, barrier):
+    """Kernel J against its twin on the CPU: the same region on every row
+    (all 7 PT and 9 EE regions hit), anchors and tangent bases within 64 eps
+    of the coordinate scale (8 sqrt(eps) on the near-parallel crossing rows,
+    whose basis is ill-conditioned), mu exactly, fn within 64 eps of its
+    scale, and rows past the count zero with region -1. In float32 the
+    crossing rows run with a parallel cutoff below the dtype's default and
+    take the degenerate line-parameter branch (in float64 the classifier's
+    parallel test and that branch's test coincide to rounding)."""
+    rng = np.random.default_rng(9)
+    n = 512
+    eps = torch.finfo(dtype).eps
+    k_t = torch.tensor(1e5, dtype=dtype)
+    mu = torch.as_tensor(rng.uniform(0.0, 1.0, (4, 4)), dtype=dtype)
+    mu = 0.5 * (mu + mu.T)
+    dhat = torch.as_tensor(rng.uniform(1e-3, 1e-2, n), dtype=dtype)
+    d = dhat * torch.as_tensor(rng.uniform(0.0, 1.2, n), dtype=dtype)
+    count = torch.tensor(n - 7, dtype=torch.int32)
+    i = torch.arange(n, dtype=torch.int32)
+    # PT
+    V = torch.as_tensor(_pt_row_geometry(rng, n), dtype=dtype)
+    tris = torch.stack([n + i, 2 * n + i, 3 * n + i], 1)
+    p_mesh = torch.as_tensor(rng.integers(0, 4, 4 * n), dtype=torch.int32)
+    t_mesh = torch.as_tensor(rng.integers(0, 4, n), dtype=torch.int32)
+    args = (V, tris, i, i, count, d, dhat, p_mesh, t_mesh, mu, k_t, barrier)
+    ref = fr.friction_rows_pt_plain(*args)
+    out = [x.cpu() for x in fr.friction_rows_pt(*(
+        x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))]
+    scale = 1.0 + float(V.abs().max())
+    assert torch.equal(out[0], ref[0]) and len(torch.unique(ref[0][:n - 7])) == 7
+    assert torch.all(ref[0][n - 7:] == -1)
+    for x, y in zip(out[1:3], ref[1:3]):
+        assert torch.all((x - y).abs() <= 64 * eps * scale)
+    assert torch.equal(out[3], ref[3])
+    assert torch.all((out[4] - ref[4]).abs() <= 64 * eps * ref[4].abs().max())
+    assert float(ref[4].abs().max()) > 0.0
+    # EE
+    Vg, k = _ee_row_geometry(rng, n)
+    V = torch.as_tensor(Vg, dtype=dtype)
+    edges = torch.cat([torch.stack([i, n + i], 1), torch.stack([2 * n + i, 3 * n + i], 1)])
+    e_mesh = torch.as_tensor(rng.integers(0, 4, 2 * n), dtype=torch.int32)
+    ptol = 1e-6 if dtype == torch.float32 else None
+    args = (V, edges, i, n + i, count, d, dhat, e_mesh, mu, k_t, barrier, ptol)
+    ref = fr.friction_rows_ee_plain(*args)
+    out = [x.cpu() for x in fr.friction_rows_ee(*(
+        x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))]
+    scale = 1.0 + float(V.abs().max())
+    assert torch.equal(out[0], ref[0]) and len(torch.unique(ref[0][:n - 7])) == 9
+    tol = torch.full((n,), 64 * eps * scale, dtype=torch.float64)
+    tol[k:2 * k] = 8 * eps ** 0.5 * scale
+    for x, y in zip(out[1:3], ref[1:3]):
+        err = (x - y).abs().double().reshape(n, -1).amax(1)
+        assert torch.all(err <= tol)
+    assert torch.equal(out[3], ref[3])
+    assert torch.all((out[4] - ref[4]).abs() <= 64 * eps * ref[4].abs().max())
+    if dtype == torch.float32:
+        degen = (ref[0][k:2 * k] == 8) & (ref[1][k:2 * k] == 0.5).all(1)
+        assert int(degen.sum()) > 0
+
+
 def test_cloth_on_card_tracks_the_cpu_port(dev):
     """Three f64 steps of a 6x6 hanging cloth on the card (every kernel)
     against the same port on the CPU (twins, exact eigh)."""
@@ -308,4 +491,34 @@ def test_spinning_box_on_card_tracks_the_cpu_port(dev):
     x_cpu, codes_cpu, newton_cpu, live_cpu = run("cpu")
     assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
     assert live_cpu > 0
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6
+
+
+def test_friction_box_on_card_tracks_the_cpu_port(dev):
+    """Five f64 steps of the 6x6 spinning box with friction mu = 1 (cloth and
+    box, cloth and itself) on the card (kernels A-J) against the same port
+    on the CPU: the same solver codes, Newton counts and friction counts,
+    and close positions."""
+    from stark_tpu_torch.tools.scenes import spinning_box_cloth
+
+    def run(device):
+        sim, cloth, spin = spinning_box_cloth(6, "float64", device, mu=1.0)
+        sim.add_time_event(0.0, 10.0, spin)
+        fric = []
+        for _ in range(5):
+            assert sim.run_one_time_step()
+            fric.append({k: v for k, v in sim.stark.newton._last_counts.items()
+                         if k.startswith("f_")})
+        lg = sim.get_logger()
+        return (cloth.point_set.get_positions(), lg.series["solver_code"],
+                lg.series["newton_iterations"], fric)
+
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu, fric_gpu = run("cuda")
+    for k in ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[pt]",
+              "compact[route_f_pt_dd]"):
+        assert build.launches[k] > 0, k
+    x_cpu, codes_cpu, newton_cpu, fric_cpu = run("cpu")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert fric_gpu == fric_cpu and fric_cpu[-1]["f_pt"] > 0
     assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6

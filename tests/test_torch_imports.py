@@ -36,7 +36,8 @@ def _module_name(path):
     return rel[:-len(".__init__")] if rel.endswith(".__init__") else rel
 
 
-# the rigid-body and contact slice: every module must exist and import
+# the rigid-body and contact slices (friction included): every module must
+# exist and import
 CONTACT_SLICE = [
     "stark_tpu_torch.collision.narrow_phase",
     "stark_tpu_torch.models.rigid_dynamics",
@@ -53,6 +54,8 @@ CONTACT_SLICE = [
     "stark_tpu_torch.ops.ball_wide",
     "stark_tpu_torch.ops.narrow",
     "stark_tpu_torch.ops.segment_triangle",
+    "stark_tpu_torch.ops.friction_pairs",
+    "stark_tpu_torch.ops.friction_rows",
 ]
 
 
