@@ -36,7 +36,22 @@ Phases (every failure propagates; nothing is caught):
      their twins on the CPU in f32 and f64 at the final state and time them
      (in a child process, `chip_smoke.py --friction OUT`, started with
      phase 9's);
- 11. print the kernels' JSON line, the card line, and the result line.
+ 11. print the kernels' JSON line, the card line, and the result line;
+ 12. run bench.py's 64x64 scale point of spinning_box_cloth (float32, one
+     warm-up step, then 0.15 simulated seconds through Simulation.run),
+     where the edge-edge block (12,416^2 pairs) takes the hash grid: kernels
+     K and L besides A-H; print bench.py's scale_64 fields and check them
+     (ok, finite, live contact pairs at the end, no intersection, every
+     kernel of the path launched);
+ 13. at phase 12's final state, hold kernels K and L exactly against their
+     twins in f32 and f64 (ee_dd on the grid; pt_dd and ee_dr dense), the
+     broad shell's lists and the per-stem friction tables (mu = 1, f64)
+     against the engine's twin path (every kernel's twin on the CPU, on
+     the card's inputs), and the family pair
+     sets of the grid against those of a dense-mode engine at the same
+     state; time K, L, their twins, and ee_dd's grid path against the dense
+     ball path (phases 12 and 13 run in a child process,
+     `chip_smoke.py --scale64 OUT`, started with phase 9's).
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -50,6 +65,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -64,6 +80,7 @@ DEVICE = "cuda"
 N_MAIN, N_DENSE, MAIN_STEPS, DENSE_STEPS = 64, 32, 6, 3
 N_SBC, SBC_SECONDS = 32, 0.4
 FRICTION_MU, FRICTION_SECONDS = 1.0, 0.3
+N_SCALE, SCALE_SECONDS = 64, 0.15      # bench.py's BENCH_SCALE_QUADS / _SECONDS
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores; f64 outside the tensor cores is half
@@ -116,14 +133,15 @@ def pin_top_corners(sim, h, Params, size, stiffness=None):
             h.point_set, (cx, hd, 0.0), (0.001, 0.001, 0.001), bc)
 
 
-def make_spinning_box(n: int, dtype: str, adaptive: bool = True, mu: float = 0.0):
+def make_spinning_box(n: int, dtype: str, adaptive: bool = True, mu: float = 0.0,
+                      broad_phase: str = "auto"):
     """bench.py's spinning_box_cloth on DEVICE (with Coulomb friction mu
     between cloth and box and of the cloth with itself when mu > 0):
     (sim, cloth, spin(t))."""
     from stark_tpu_torch.tools.scenes import spinning_box_cloth
 
     return spinning_box_cloth(n, dtype, DEVICE, adaptive, name="chip_smoke_spinning_box",
-                              mu=mu)
+                              mu=mu, broad_phase=broad_phase)
 
 
 def frozen_inputs(sim, dense: bool, seed: int):
@@ -663,7 +681,7 @@ def intersects_now(sim) -> bool:
     """Does any edge cross any triangle at the current state (u = 0)?"""
     eng, _nm, _u, Vs, Vr = contact_state(sim)
     zero = torch.zeros((), dtype=sim.stark.dtype, device=DEVICE)
-    icands, _counts = eng._isect_stage1(eng._vcat(Vs, Vr), zero)
+    icands, _counts = eng._isect_stage1(Vs, Vr, zero)
     return bool(eng.isect_hit(Vs, Vr, icands))
 
 
@@ -1006,6 +1024,352 @@ def friction_run(out_json: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 12-13: bench.py's 64x64 scale point on the hash grid, kernels K, L
+# ---------------------------------------------------------------------------
+SCALE_KERNELS = ("grid_build", "rowk_select")
+# kernels A-D of the block-Jacobi branch (4,227 DOF blocks > 2048)
+JACOBI_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket",
+                  "pd_project", "block3_inverse", "block3_apply")
+# L's sphere test per scanned candidate: 3 differences, 3 products, 2 sums,
+# the radius sum and its square
+SPHERE_OPS = 10
+
+
+class twins_on_cpu:
+    """Within this context the engine's kernel table (`eng.kern`) holds the
+    plain twins, run on the CPU on the inputs the card computed, their
+    results handed back on the card: the engine's twin path, with the same
+    torch glue (balls, radii, cell sizes) as its kernel path."""
+
+    def __init__(self, eng):
+        self.eng = eng
+
+    @staticmethod
+    def _move(x, dev):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, tuple):
+            items = [twins_on_cpu._move(y, dev) for y in x]
+            return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        return x
+
+    @staticmethod
+    def _on_cpu(plain):
+        def run(*args):
+            out = plain(*(twins_on_cpu._move(a, "cpu") for a in args))
+            return twins_on_cpu._move(out, DEVICE)
+        return run
+
+    def __enter__(self):
+        from stark_tpu_torch.models.interactions import contact_engine as ce
+        from stark_tpu_torch.ops import ball_wide as bw, compact as cp
+        from stark_tpu_torch.ops import friction_pairs as fp, friction_rows as fr
+        from stark_tpu_torch.ops import grid_build as gb, narrow as nw
+        from stark_tpu_torch.ops import rowk_select as rk, segment_triangle as sg
+
+        twins = dict(
+            ball_wide=bw.ball_wide_plain,
+            # the site name only labels compact's launch count
+            compact=lambda mask, cap, site: cp.compact_plain(mask, cap),
+            ee_distance=nw.ee_distance_plain, pt_distance=nw.pt_distance_plain,
+            friction_pairs_ee=fp.friction_pairs_ee_plain,
+            friction_pairs_pt=fp.friction_pairs_pt_plain,
+            friction_rows_ee=fr.friction_rows_ee_plain,
+            friction_rows_pt=fr.friction_rows_pt_plain,
+            grid_build=gb.grid_build_plain, rowk_select=rk.rowk_select_plain,
+            segment_triangle_any=sg.segment_triangle_any_plain)
+        assert sorted(twins) == sorted(ce.KERNELS), "a kernel of the engine has no twin"
+        self.saved = self.eng.kern
+        self.eng.kern = SimpleNamespace(**{n: self._on_cpu(f) for n, f in twins.items()})
+        return self
+
+    def __exit__(self, *exc):
+        self.eng.kern = self.saved
+
+
+def same_tree(a, b, what):
+    """Two nested dicts/tuples of tensors are equal element for element."""
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), f"{what}: keys {sorted(a)} != {sorted(b)}"
+        for k in a:
+            same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (tuple, list)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{what}[{i}]")
+    elif not torch.equal(a.cpu(), b.cpu()):
+        raise AssertionError(f"{what} differs")
+
+
+def shells_settled(eng, Vs, Vr, th, slack_b, slack_p):
+    """broad_fn and pairs_fn at (Vs, Vr), rebuilt with bumped capacities
+    until nothing overflows, as the solve does: (mid lists, oracle lists,
+    family tables, counts)."""
+    while True:
+        mc, ic, cnt = eng.broad_fn(Vs, Vr, th, slack_b, slack_p)
+        tables, pcnt = eng.pairs_fn(Vs, Vr, th, mc, slack_p)
+        cnt = dict(cnt, **pcnt)
+        keys = sorted(cnt)
+        if not eng._check_overflow(keys, [int(cnt[k]) for k in keys]):
+            return mc, ic, tables, cnt
+
+
+def family_sets(tables):
+    out = {}
+    for name, fd in tables.items():
+        act = fd["rows"]["active"].cpu().numpy() > 0.5
+        out[name] = set(map(tuple, fd["conn"].cpu().numpy()[act].tolist()))
+    return out
+
+
+def scale64_checks(sim):
+    """Phase 13 at the final state of phase 12: kernels K and L exactly
+    against their twins (f64, then f32: the f32 pass is timed), the broad
+    shell and the per-stem friction tables against the engine's twin path,
+    grid against dense pair sets; returns (timing
+    records of K and L, the ee_dd grid-vs-dense times and pair counts)."""
+    from stark_tpu_torch.collision import broad_phase as bp
+    from stark_tpu_torch.ops import ball_wide as bw, grid_build as gb
+    from stark_tpu_torch.ops import narrow as nw, rowk_select as rk
+
+    eng, _nm, _u, Vs32, Vr32 = contact_state(sim)
+    assert eng.dense_pt and not eng.dense_ee and eng.dense_et, \
+        "the 64x64 routing: PT and ET dense, EE on the grid"
+    slack_b, slack_p = 0.016, 0.002
+    results, info = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        log(f"-- {dtype}")
+        Vs, Vr = Vs32.to(dtype), Vr32.to(dtype)
+        th = eng.th_vec().to(dtype)
+        sl = torch.as_tensor(slack_b + slack_p, dtype=dtype, device=DEVICE)
+        # K and L on ee_dd's hash grid, called as _grid_stage1 calls them
+        ma, ha, th_a, mb, hb, th_b = eng._ee_geom("ee_dd", Vs, Vr, th)
+        qr, tr = ha + th_a + sl, hb + th_b
+        h = bp.pick_cell_size(qr, tr)
+        ins, occ = eng._cap("g_ee_dd_ins"), eng._cap("g_ee_dd_occ")
+        tsz = bp.table_size_for(mb.shape[0])
+        k_args = (mb, tr, bp.max_query_radius(qr), h, ins, tsz)
+        out_k = gb.grid_build(*k_args)
+        ref_k = gb.grid_build_plain(*k_args)
+        torch.cuda.synchronize()
+        same_tree(tuple(out_k), tuple(ref_k), f"grid_build ({dtype})")
+        run = (out_k[0][1:] - out_k[0][:-1]).max()
+        log(f"  grid_build {str(dtype):<14} T={mb.shape[0]} ins={ins} table={tsz} "
+            f"h={float(h):.4e} slots={int(out_k[0][-1])} max_cells={int(out_k[2])} "
+            f"longest bucket run={int(run)} ok")
+        K = eng._cap("c_ee_dd")
+        grid = rk.GridIndex(out_k[0], out_k[1], h, occ)
+        l_args = (ma, mb, rk.Sphere("grid", qr, tr), eng._pred("ee_dd"), K, grid)
+        out_l = rk.rowk_select(*l_args)
+        ref_l = rk.rowk_select_plain(*l_args)
+        torch.cuda.synchronize()
+        same_tree(tuple(out_l), tuple(ref_l), f"rowk_select[grid ee_dd] ({dtype})")
+        log(f"  rowk_select[grid ee_dd] {str(dtype):<14} Nq={ma.shape[0]} K={K} "
+            f"occ_cap={occ} max_row={int(out_l[1])} max_occ={int(out_l[2])} ok")
+        # L dense: pt_dd (4,225 x 8,192) and ee_dr (the box's edges)
+        P, th_p, c, r, th_t = eng._pt_geom("pt_dd", Vs, Vr, th)
+        mr, hr, th_r, ms, hs, th_s = eng._ee_geom("ee_dr", Vs, Vr, th)
+        for stem, args in (
+                ("pt_dd", (P, c, rk.Sphere("pt", th_p, r, tb=th_t, sl=sl),
+                           eng._pred("pt_dd"), eng._cap("c_pt_dd"))),
+                ("ee_dr", (mr, ms, rk.Sphere("ee", hr, hs, qb=th_r, tb=th_s, sl=sl),
+                           eng._pred("ee_dr"), eng._cap("c_ee_dr")))):
+            out = rk.rowk_select(*args)
+            ref = rk.rowk_select_plain(*args)
+            torch.cuda.synchronize()
+            same_tree(tuple(out[:2]), tuple(ref[:2]), f"rowk_select[dense {stem}] ({dtype})")
+            log(f"  rowk_select[dense {stem}] {str(dtype):<14} "
+                f"{args[0].shape[0]}x{args[1].shape[0]} K={args[4]} "
+                f"max_row={int(out[1])} ok")
+        if dtype == torch.float64:
+            continue
+        # timing (float32, the path's dtype)
+        T, nq = mb.shape[0], ma.shape[0]
+        # the filled slots only: the padding past offsets[-1] is read by no one
+        bnd = bound_ms(nbytes(mb, tr) + 4 * (tsz + 1) + 4 * int(out_k[0][-1]) + 4,
+                       0.0, dtype)
+        results["grid_build"] = dict(
+            max_abs_err=0.0, ms=graph_ms(lambda: gb.grid_build(*k_args)),
+            plain_ms=events_ms(lambda: gb.grid_build_plain(*k_args), iters=5),
+            library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"ee_dd: {T} targets, {ins} slots, table {tsz}")
+        qb = bp._hash_cells(bp._cell_of(ma, h), tsz).long()
+        offs = out_k[0].long()
+        scanned = int(torch.clamp_max(offs[qb + 1] - offs[qb], occ).sum())
+        pr = l_args[3]
+        bnd = bound_ms(nbytes(ma, qr, mb, tr, pr.qm, pr.tm, pr.qidx, pr.tidx,
+                              out_k[0]) + 4 * scanned + 4 * nq * K,
+                       SPHERE_OPS * scanned, dtype)
+        results["rowk_select"] = dict(
+            max_abs_err=0.0, ms=graph_ms(lambda: rk.rowk_select(*l_args)),
+            plain_ms=events_ms(lambda: rk.rowk_select_plain(*l_args), iters=5),
+            library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"ee_dd grid: {nq} queries, {scanned} scanned, K {K}")
+
+    # the broad shell (the grid's mid lists, the dense oracle's lists) and
+    # its counts against the engine's twin path (f32)
+    th = eng.th_vec()
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=DEVICE)
+    sb, sp = f(slack_b), f(slack_p)
+    mc, ic, tables, cnt = shells_settled(eng, Vs32, Vr32, th, sb, sp)
+    t0 = time.perf_counter()
+    with twins_on_cpu(eng):
+        mc_c, ic_c, cnt_c = eng.broad_fn(Vs32, Vr32, th, sb, sp)
+    same_tree(mc, mc_c, "broad_fn mid lists")
+    same_tree(ic, ic_c, "broad_fn oracle lists")
+    same_tree({k: cnt[k] for k in cnt_c}, cnt_c, "broad_fn counts")
+    log(f"  broad_fn (_broad_grid, dense oracle) lists and counts equal the twin "
+        f"path's ({time.perf_counter() - t0:.1f}s with the twins on the CPU): "
+        + ", ".join(f"{k}={int(cnt_c[k])}" for k in sorted(cnt_c)
+                    if k.startswith(("m_", "c_", "g_"))))
+    # friction_tables' per-stem branch, mu = 1 everywhere (f64)
+    V0 = [v.double() for v in eng.step_start_world(eng.engine_state())]
+    mu = torch.ones((len(sim.interactions.contact.contact_thicknesses),) * 2,
+                    dtype=torch.float64, device=DEVICE)
+    k64 = torch.tensor(float(sim.interactions.contact.contact_stiffness),
+                       dtype=torch.float64, device=DEVICE)
+    ft, fc = eng.friction_tables(*V0, th.double(), mu, k64)
+    with twins_on_cpu(eng):
+        ft_c, fc_c = eng.friction_tables(*V0, th.double(), mu, k64)
+    same_tree(fc, fc_c, "friction counts")
+    worst = 0.0
+    for name, fd in ft_c.items():
+        act = fd["rows"]["active"] > 0.5
+        same_tree(ft[name]["conn"][act], fd["conn"][act], name + " conn")
+        for r, v in fd["rows"].items():
+            w = ft[name]["rows"][r][act]
+            v = v[act]
+            if not v.is_floating_point():
+                same_tree(w, v, f"{name} {r}")
+            elif v.numel():
+                err = float((w.double() - v.double()).abs().max()
+                            / max(float(v.double().abs().max()), 1e-300))
+                worst = max(worst, err)
+                assert err <= 1e-9, f"friction {name} {r}: relative error {err:.3e}"
+    log("  friction_tables (grid branch, mu = 1, f64) equal the twin path's: "
+        + ", ".join(f"{k}={int(v)}" for k, v in sorted(fc_c.items())
+                    if k.startswith("f_")) + f", floats within {worst:.2e} (1e-9)")
+    # grid against dense at the same state: a dense-mode engine of the scene
+    simd, _cl, _sp = make_spinning_box(N_SCALE, "float32", broad_phase="dense")
+    simd.stark._initialize()
+    engd = simd.interactions.contact.engine()
+    assert engd.dense_ee and engd.d_ee_allowed is not None
+    _mc, ic_d, tables_d, cnt_d = shells_settled(engd, Vs32, Vr32, th, sb, sp)
+    sets_g, sets_d = family_sets(tables), family_sets(tables_d)
+    assert sets_g == sets_d, {k: len(sets_g[k] ^ sets_d.get(k, set())) for k in sets_g}
+    hit_g = bool(eng.isect_hit(Vs32, Vr32, ic))
+    assert hit_g == bool(engd.isect_hit(Vs32, Vr32, ic_d)) is False
+    info["pair_sets"] = {k: len(v) for k, v in sets_g.items()}
+    log(f"  grid and dense family pair sets equal: {info['pair_sets']} "
+        f"(dense w_ee={int(cnt_d['w_ee'])}, m_ee={int(cnt_d['m_ee'])})")
+    # ee_dd's candidate search: the grid path (K, L, G, E) against the dense
+    # ball path of the combined EE grid (F over 12,434^2 pairs, G, E), both
+    # launched from the host with their torch glue; F alone in a CUDA graph
+    m, hh = engd._edge_balls(engd._vcat(Vs32, Vr32))
+    th_e = th[engd.d_e_mesh]
+    pad = engd._bound_pad(engd._vcat(Vs32, Vr32))
+    Vcat = engd._vcat(Vs32, Vr32)
+
+    def dense_ee():
+        (a, b, act), _w = engd._ball_wide("w_ee", m, hh + th_e, m, hh + th_e,
+                                          engd.d_ee_allowed, sb + sp + pad)
+        bound = th_e[a.long()] + th_e[b.long()] + sb + sp
+        _d, keep = nw.ee_distance(Vcat, engd.d_edges_all, a, b,
+                                  engd.model.edge_edge_cross_norm_sq_cutoff, act, bound)
+        return engd._refine(a, b, keep, engd._cap("m_ee"), "refine_ee")
+
+    def grid_ee():
+        return eng._stem_pairs("ee_dd", Vs32, Vr32, th, sb + sp, "c_ee_dd", "m_")
+
+    info["ee_dd_grid_ms"] = events_ms(grid_ee, iters=5)
+    info["ee_dd_dense_ms"] = events_ms(dense_ee, iters=5)
+    info["ee_dd_dense_ball_ms"] = graph_ms(lambda: bw.ball_wide(
+        m, hh + th_e, m, hh + th_e, engd.d_ee_allowed, sb + sp + pad,
+        engd._cap("w_ee")), iters=5)
+    log(f"  ee_dd candidate search: grid (K, L, G, E) {info['ee_dd_grid_ms']:.4f} ms, "
+        f"dense (F, G, E) {info['ee_dd_dense_ms']:.4f} ms, of which F "
+        f"{info['ee_dd_dense_ball_ms']:.4f} ms")
+    return results, info
+
+
+def scale64_run(out_json: str) -> int:
+    """Phases 12 and 13, run as `chip_smoke.py --scale64 OUT_JSON`:
+    bench.py's 64x64 scale point in float32 (a warm-up step, then
+    SCALE_SECONDS through Simulation.run), its checks, then phase 13;
+    writes bench's scale fields, the path's launches and K's and L's
+    records."""
+    from stark_tpu_torch.ops import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # three processes share the host's cores
+    t0 = time.perf_counter()
+    sim, cloth, spin = make_spinning_box(N_SCALE, "float32")
+    sim.add_time_event(0.0, 10.0, spin)
+    lg = sim.get_logger()
+    count_max, live = {}, []
+
+    def track():
+        nm = sim.stark.newton
+        if nm is None or not nm._last_counts:
+            return
+        for k, v in nm._last_counts.items():
+            count_max[k] = max(count_max.get(k, 0), int(v))
+        live.append(nm.live_contact_pairs())
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter()
+    assert sim.run_one_time_step(), "the warm-up step failed"
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t_warm
+    track()
+    live.clear()
+    warm_newton = int(lg.get_stats("newton_iterations").total)
+    t_sim = sim.get_time()
+    t1 = time.perf_counter()
+    ok = sim.run(duration=SCALE_SECONDS, callback=track)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    track()
+    launches = dict(build.launches)
+    launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
+    newton = int(lg.get_stats("newton_iterations").total) - warm_newton
+    fields = {
+        "ok": bool(ok), "newton_iters_per_s": newton / wall if wall else 0.0,
+        "sim_sec_per_wall_hour": (sim.get_time() - t_sim) / wall * 3600.0,
+        "newton_iters": newton, "wall_s": wall, "warmup_s": warm_s,
+        "warmup_newton": warm_newton,
+        "ms_per_newton_iter": 1e3 * wall / max(newton, 1),
+        "cg_per_newton": int(lg.get_stats("cg_iterations").total)
+        / max(int(lg.get_stats("newton_iterations").total), 1),
+        "steps": sim.stark.current_time_step, "sim_seconds": sim.get_time(),
+        "broad_rebuilds": int(lg.get_stats("broad_rebuilds").total),
+        "pair_rebuilds": int(lg.get_stats("pair_rebuilds").total),
+        "fused_retraces": int(lg.get_int("fused_retraces")),
+        "count_max": {k: v for k, v in sorted(count_max.items())
+                      if k.startswith(("c_", "g_", "m_"))},
+        "live_pairs_last": live[-1], "live_pairs_max": max(live),
+        "solver_codes": [int(c) for c in lg.series["solver_code"]],
+    }
+    print("scale_64: " + json.dumps(fields), flush=True)
+    print(f"launches={launches}", flush=True)
+    x = cloth.point_set.get_positions()
+    assert fields["ok"], "the scale run failed"
+    assert np.all(np.isfinite(x)), "non-finite positions"
+    assert fields["live_pairs_last"] > 0, "no live contact pairs at the end"
+    assert not intersects_now(sim), "the final state intersects"
+    assert_launched(launches, SCALE_KERNELS + CONTACT_KERNELS + JACOBI_KERNELS,
+                    "the 64x64 scale point")
+    print("-- phase 13", flush=True)
+    torch.set_num_threads(4)     # the twins' CPU runs
+    results, info = scale64_checks(sim)
+    with open(out_json, "w") as f:
+        json.dump({"fields": fields, "launches": launches, "results": results,
+                   "info": info, "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
 KERNELS = [
     # name, source, the TPU-shaped JAX function it replaces
     ("segment_reduce[egh]", "stark_tpu_torch/csrc/segment_reduce.cu",
@@ -1043,6 +1407,12 @@ KERNELS = [
      "stark_tpu/collision/narrow_phase.py:172"),
     ("friction_rows[ee]", "stark_tpu_torch/csrc/friction_rows.cu",
      "stark_tpu/collision/narrow_phase.py:333"),
+    # the hash-grid broad phase (phase 12): the grid build and the row-K
+    # candidate selection of _grid_stage1 (:613) and _rowk_topk (:586)
+    ("grid_build", "stark_tpu_torch/csrc/grid_build.cu",
+     "stark_tpu/collision/broad_phase.py:48"),
+    ("rowk_select", "stark_tpu_torch/csrc/rowk_select.cu",
+     "stark_tpu/models/interactions/contact_engine.py:586"),
 ]
 CONTACT_KERNELS = ("compact", "ball_wide", "pt_ee_distance[pt]",
                    "pt_ee_distance[ee]", "segment_triangle_any")
@@ -1085,10 +1455,11 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phases 9 and 10 run beside phases 3-8, each in a process of its own:
+    # phases 9, 10 and 12-13 run beside phases 3-8, each in a process of its own:
     # the work is host-bound (one Python thread each) and the card mostly idle
     children = [start_child("--golden-sbc16", "golden_sbc16"),
-                start_child("--friction", "friction")]
+                start_child("--friction", "friction"),
+                start_child("--scale64", "scale64")]
     try:
         return phases_3_to_11(card, t_start, *children)
     finally:
@@ -1099,7 +1470,7 @@ def main() -> int:
             logf.close()
 
 
-def phases_3_to_11(card, t_start, golden_child, friction_child) -> int:
+def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -1204,11 +1575,25 @@ def phases_3_to_11(card, t_start, golden_child, friction_child) -> int:
     launches_fric = r10["launches"]
     results.update(r10["results"])
 
+    # ---- 12-13: the 64x64 scale point (its own process, started with 9's)
+    log(f"phase 12: spinning_box_cloth {N_SCALE}x{N_SCALE}, float32, cuda, warm-up "
+        f"step + {SCALE_SECONDS} s (bench.py's scale point; EE on the hash grid)")
+    r12 = finish_child(scale_child, "the 64x64 scale point")
+    with open(os.path.join(OUT_DIR, "scale64.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("scale_64:", "launches=", "-- ", "  ")):
+                log("  " + line.strip())
+    log(f"  {r12['seconds']:.2f}s (beside phases 3-10)")
+    launches_scale = r12["launches"]
+    results.update(r12["results"])
+
     # ---- 11 ----
     kernels = []
     for name, source, replaces in KERNELS:
         r = results[name]
-        if name in FRICTION_KERNELS:
+        if name in SCALE_KERNELS:
+            launches = launches_scale.get(name, 0)
+        elif name in FRICTION_KERNELS:
             launches = launches_fric.get(name, 0)
         elif name in CONTACT_KERNELS:
             launches = launches_sbc.get(name, 0)
@@ -1224,7 +1609,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child) -> int:
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
-                                      "spinning_box32_friction_f32": r10["fields"]},
+                                      "spinning_box32_friction_f32": r10["fields"],
+                                      "scale_64_f32": r12["fields"]},
+               "scale_64_launches": launches_scale, "scale_64_phase13": r12["info"],
                "spinning_box_launches": launches_sbc,
                "friction_launches": launches_fric,
                "golden16_f64_max_dev": worst,
@@ -1247,4 +1634,6 @@ if __name__ == "__main__":
         sys.exit(golden_sbc16(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--friction":
         sys.exit(friction_run(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--scale64":
+        sys.exit(scale64_run(sys.argv[2]))
     sys.exit(main())

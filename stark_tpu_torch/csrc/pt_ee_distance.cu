@@ -11,7 +11,9 @@
 // formula only, and writes
 //     d[r]    = distance,
 //     keep[r] = act[r] && d[r] - off[r] <= bound[r]
-// (act, off optional). The JAX version evaluates all 7 (PT) or 9 (EE)
+// (act, off optional); a row with act[r] = 0 gets d = 0 and keep = 0 and
+// costs no distance (the (Nq, K) candidate grids of the hash-grid path are
+// mostly padding). The JAX version evaluates all 7 (PT) or 9 (EE)
 // candidate formulas per row and selects by one-hot sum; the twin keeps
 // that form because it must stay differentiable.
 //
@@ -30,6 +32,11 @@ __global__ void pt_distance_kernel(const T* __restrict__ P, const T* __restrict_
                                    uint8_t* __restrict__ keep) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
+  if (act != nullptr && !act[r]) {   // a padding row: no distance
+    d[r] = T(0);
+    if (keep != nullptr) keep[r] = 0;
+    return;
+  }
   const int* tri = tris + 3LL * t[r];
   const T dist = point_triangle_distance(ld3(P + 3LL * q[r]), ld3(V + 3LL * tri[0]),
                                          ld3(V + 3LL * tri[1]),
@@ -51,6 +58,11 @@ __global__ void ee_distance_kernel(const T* __restrict__ V,
                                    uint8_t* __restrict__ keep) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= R) return;
+  if (act != nullptr && !act[r]) {   // a padding row: no distance
+    d[r] = T(0);
+    if (keep != nullptr) keep[r] = 0;
+    return;
+  }
   const int* ea = edges + 2LL * a[r];
   const int* eb = edges + 2LL * b[r];
   const T dist = edge_edge_distance(ld3(V + 3LL * ea[0]), ld3(V + 3LL * ea[1]),

@@ -108,6 +108,9 @@ class EnergyFrictionalContact:
         self.meshes: List[ContactMesh] = []
         self.pair_mu: Dict[tuple, float] = {}
         self.disabled_pairs: set = set()
+        # candidate search: "auto" (a block over 2^27 pairs takes the hash
+        # grid), "dense" or "grid"; read when the engine is built
+        self.broad_phase = "auto"
         self._engine = None
 
         stark.callbacks.newton.add_is_initial_state_valid(

@@ -68,6 +68,9 @@ _SIGNATURES = {
                              _P, _P, _P, _P, _P, _P],
     "stk_friction_rows_ee": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _D,
                              _P, _P, _P, _P, _P, _P],
+    "stk_grid_build": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
 # entry points without a floating-point operand: one symbol, no suffix
 _UNTYPED = {

@@ -5,7 +5,8 @@ Replaces the vmapped `point_triangle_distance` (stark_tpu/collision/
 narrow_phase.py:162) and `edge_edge_distance` (:328) over the contact
 engine's flat candidate lists. Each entry returns the distance per row and,
 when a per-row `bound` is given, keep = act & (d - off <= bound), the mask
-kernel E then compacts.
+kernel E then compacts. Rows with act = 0 are padding: their distance is
+0 (the kernel does not compute it).
 """
 from __future__ import annotations
 
@@ -13,6 +14,11 @@ import torch
 
 from ..collision import narrow_phase as nph
 from . import build
+
+
+def _padded(d, act):
+    return d if act is None else torch.where(act.to(torch.bool), d,
+                                             torch.zeros_like(d))
 
 
 def _keep(d, act, off, bound):
@@ -25,15 +31,15 @@ def _keep(d, act, off, bound):
 
 def pt_distance_plain(P, V, tris, q, t, act=None, off=None, bound=None):
     tq = tris[t.long()].long()
-    d = nph.point_triangle_distance(P[q.long()], V[tq[:, 0]], V[tq[:, 1]],
-                                    V[tq[:, 2]])
+    d = _padded(nph.point_triangle_distance(P[q.long()], V[tq[:, 0]], V[tq[:, 1]],
+                                            V[tq[:, 2]]), act)
     return d, _keep(d, act, off, bound)
 
 
 def ee_distance_plain(V, edges, a, b, ptol=None, act=None, bound=None):
     ea, eb = edges[a.long()].long(), edges[b.long()].long()
-    d = nph.edge_edge_distance(V[ea[:, 0]], V[ea[:, 1]], V[eb[:, 0]],
-                               V[eb[:, 1]], parallel_tol=ptol)
+    d = _padded(nph.edge_edge_distance(V[ea[:, 0]], V[ea[:, 1]], V[eb[:, 0]],
+                                       V[eb[:, 1]], parallel_tol=ptol), act)
     return d, _keep(d, act, None, bound)
 
 

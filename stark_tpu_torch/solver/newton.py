@@ -135,12 +135,17 @@ class NewtonsMethod:
             return torch.as_tensor(x, dtype=dtype, device=self.device)
 
         dhat_max = 2.0 * float(np.max(np.asarray(engine.model.contact_thicknesses)))
+        # the combined dense path's broad radius may grow to free-fall
+        # stride scale, 8*dhat (32 mm at the default thickness); the
+        # per-stem path keeps 4*dhat: its candidate rows (c_*) grow with
+        # the radius cubed. The cap bounds the [max] stage's stride budget,
+        # so the two paths take different Newton steps.
+        dense = engine.dense_pt and engine.dense_ee
         return {"eng_state": engine.engine_state(), "th": engine.th_vec(),
                 "slack_pair": t(0.5 * dhat_max),
                 "slack_broad_min": t(2.0 * dhat_max),
-                # the dense path's broad radius may grow to free-fall
-                # stride scale: 8*dhat (32 mm at the default thickness)
-                "slack_broad_max": t(max(8.0 * dhat_max, 0.032)),
+                "slack_broad_max": t(max(8.0 * dhat_max, 0.032) if dense
+                                     else 4.0 * dhat_max),
                 "du_floor": t(1e-4)}
 
     def live_contact_pairs(self) -> int:

@@ -6,13 +6,15 @@ import math
 
 def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
                        adaptive: bool = True, name: str = "spinning_box_cloth",
-                       mu: float = 0.0):
+                       mu: float = 0.0, broad_phase: str = "auto"):
     """bench.py's spinning_box_cloth: an n x n Cotton_Fabric cloth (0.4 m)
     falling on a fixed 8 cm box that sinks and turns (90 deg/s), IPC contact
     at 2 mm thickness. With mu > 0, Coulomb friction mu between the cloth
     and the box and of the cloth with itself (the upstream examples' cloth
-    friction is 1.0). Returns (sim, cloth handler, spin(t)); the caller
-    either registers spin as a time event or calls it before each step."""
+    friction is 1.0). `broad_phase` ("auto", "dense", "grid") picks the
+    candidate search; "auto" takes the hash grid for the edge-edge block
+    from 62x62 on. Returns (sim, cloth handler, spin(t)); the caller either
+    registers spin as a time event or calls it before each step."""
     from stark_tpu_torch import Settings, Simulation
     from stark_tpu_torch.models.interactions.contact import ContactGlobalParams
     from stark_tpu_torch.presets.presets import SurfaceParams
@@ -28,6 +30,7 @@ def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
     gp = ContactGlobalParams()
     gp.default_contact_thickness = 0.002
     sim.interactions.contact.set_global_params(gp)
+    sim.interactions.contact.broad_phase = broad_phase
     cloth = sim.presets.deformables.add_surface_grid(
         "cloth", (0.4, 0.4), (n, n), SurfaceParams.Cotton_Fabric())
     box = sim.presets.rigidbodies.add_box("box", 1.0, 0.08)

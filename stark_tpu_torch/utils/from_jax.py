@@ -62,8 +62,9 @@ def set_contact_state(contact, thicknesses, stiffness: float, caps=None,
     per-mesh-pair Coulomb mu (the JAX model's `pair_mu`, {(a, b): mu}; the
     port's `mu_mat` glob entry is built from it) and, once the engine exists
     (after the first step's freeze), the list capacities of the JAX engine
-    (`engine._caps`, the f_ friction tables' included; the names the port
-    does not have are ignored)."""
+    (`engine._caps`: the f_ friction tables', the hash grid's g_ and the
+    candidate rows' c_, cf_, i_ included; the names the port does not have
+    are ignored)."""
     contact.contact_thicknesses = [float(t) for t in np.asarray(thicknesses).ravel()]
     contact.contact_stiffness = float(stiffness)
     if pair_mu is not None:

@@ -27,7 +27,7 @@ SMALL = {"w_pt": 16, "m_pt": 16, "w_ee": 16, "m_ee": 16, "pt_dd": 4,
          "pt_dr": 4, "ee_dd": 4, "ee_dr": 4}
 
 
-def _scene():
+def _scene(broad_phase="auto"):
     s = stt.Settings()
     s.output.enable_output = False
     s.output.enable_frame_writes = False
@@ -38,6 +38,7 @@ def _scene():
     gp = ContactGlobalParams()
     gp.default_contact_thickness = 0.002
     sim.interactions.contact.set_global_params(gp)
+    sim.interactions.contact.broad_phase = broad_phase
     cloth = sim.presets.deformables.add_surface_grid(
         "cloth", (0.4, 0.4), (6, 6), SurfaceParams.Cotton_Fabric())
     box = sim.presets.rigidbodies.add_box("box", 1.0, 0.08)
@@ -83,6 +84,38 @@ def test_overflow_resolve_equals_run_with_bumped_caps():
     for (xa, code_a, it_a), (xb, code_b, it_b) in zip(out_a, out_b):
         assert code_a == code_b and it_a == it_b
         assert np.array_equal(xa, xb)
+
+
+SMALL_G = {"c_pt_dd": 2, "c_pt_dr": 2, "c_ee_dd": 2, "c_ee_dr": 2,
+           "g_pt_dd_occ": 2, "g_ee_dd_occ": 2, "g_ee_dr_occ": 2, "g_pt_dd_ins": 2,
+           "g_ee_dd_ins": 2, "m_pt_dr": 4, "m_ee_dr": 4, "i_ss": 2,
+           "g_i_ss_occ": 2}
+
+
+def test_grid_overflow_resolve_equals_run_with_bumped_caps():
+    """The same on the hash-grid path (broad_phase "grid"): candidate row
+    slots (c_), bucket-scan lengths and insertion slots (g_..._occ,
+    g_..._ins), mid segments and oracle rows start tiny at the first
+    contact step, overflow, are bumped and the step is solved again; a run
+    that starts the step with the bumped capacities gives the same
+    positions, code and Newton count, bit for bit."""
+    a, ca = _scene("grid")
+    b, cb = _scene("grid")
+    for _ in range(2):
+        assert np.array_equal(_step(a, ca)[0], _step(b, cb)[0])
+    eng_a = a.interactions.contact.engine()
+    eng_a.set_caps(SMALL_G)
+    xa, code_a, it_a = _step(a, ca)
+    assert a.get_logger().get_int("fused_retraces") >= 1
+    bumped = {k for k, v in SMALL_G.items() if eng_a._caps[k] > v}
+    assert {"c_pt_dr", "g_ee_dd_occ", "g_pt_dd_ins"} <= bumped, bumped
+    assert a.stark.newton.live_contact_pairs() > 0
+    b.interactions.contact.engine().set_caps(dict(eng_a._caps))
+    b.stark.newton._pool_cap = a.stark.newton._pool_cap
+    xb, code_b, it_b = _step(b, cb)
+    assert b.get_logger().get_int("fused_retraces") == 0
+    assert code_a == code_b and it_a == it_b
+    assert np.array_equal(xa, xb)
 
 
 SMALL_F = {"f_pt": 4, "f_ee": 4, "f_pt_dd": 4, "f_pt_dr": 4, "f_pt_rd": 4,

@@ -551,10 +551,11 @@ def test_rigid_box_drops_on_fixed_box():
     assert 0.09 < t[2] < 0.12, f"unexpected rest height {t[2]}"
 
 
-def test_unported_contact_paths_raise():
-    """A dense grid over 2^27 pairs (the hash-grid broad phase, P9) raises,
-    naming its ROADMAP item. (Friction, P4, is ported:
-    tests/test_torch_friction*.py.)"""
+def test_grid_threshold_routes_blocks_to_the_grid():
+    """A block over GRID_PAIR_THRESHOLD candidate pairs takes the hash grid
+    (it raised, naming ROADMAP P9, until the grid was ported): with the
+    threshold at 10, a 2x2 cloth's step runs every stem and the oracle
+    through kernels K and L's twins and reports the grid's g_ counts."""
     P, C = _contact_mods(stark_tpu_torch)
     from stark_tpu_torch.models.interactions import contact_engine as ce
     old = ce.GRID_PAIR_THRESHOLD
@@ -564,8 +565,20 @@ def test_unported_contact_paths_raise():
         sim.interactions.contact.global_params.default_contact_thickness = 0.001
         sim.presets.deformables.add_surface_grid(
             "", (0.1, 0.1), (2, 2), P.SurfaceParams.Cotton_Fabric())
-        with pytest.raises(NotImplementedError, match="P9"):
-            sim.run_one_time_step()
+        assert sim.run_one_time_step()
+        eng = sim.interactions.contact.engine()
+        assert not (eng.dense_pt or eng.dense_ee or eng.dense_et)
+        assert eng.d_pt_allowed is None and eng.d_et_allowed is None
+        counts = sim.stark.newton._last_counts
+        for key in ("g_pt_dd_ins", "g_pt_dd_occ", "g_ee_dd_ins", "g_ee_dd_occ",
+                    "g_i_ss_ins", "g_i_ss_occ", "c_pt_dd", "m_ee_dd", "im_i_ss"):
+            assert key in counts, key
+        assert counts["g_pt_dd_ins"] > 0 and counts["g_ee_dd_occ"] > 0
+        assert np.all(np.isfinite(sim.stark._connector["get_dofs"]().numpy()))
+        # the per-stem path caps the broad slack at 4 dhat (stark_tpu
+        # newton.py:300-303), the combined dense path at max(8 dhat, 32 mm)
+        params = sim.stark.newton._engine_params(eng, torch.float64)
+        assert float(params["slack_broad_max"]) == 4.0 * 2.0 * 0.001
     finally:
         ce.GRID_PAIR_THRESHOLD = old
 

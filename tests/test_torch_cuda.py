@@ -1,4 +1,4 @@
-"""Kernels A-J on a CUDA card against their plain twins, and three small
+"""Kernels A-L on a CUDA card against their plain twins, and three small
 scenes on the card against the port on the CPU.
 
 These tests need a card and skip without one. On a machine with a card
@@ -19,6 +19,8 @@ from stark_tpu_torch.ops import ball_wide as bw, compact as cp, narrow as nw
 from stark_tpu_torch.ops import block3, build, hvp_bucket as hb, pd_project as pd
 from stark_tpu_torch.ops import friction_pairs as fp, friction_rows as fr
 from stark_tpu_torch.ops import segment_reduce as sr, segment_triangle as st
+from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
+from stark_tpu_torch.collision import broad_phase as bp
 
 pytestmark = pytest.mark.cuda
 
@@ -157,6 +159,96 @@ def test_ball_wide_matches_twin(dev, dtype, cap):
     torch.cuda.synchronize()
     assert int(out[2]) == int(ref[2]) > 50
     assert torch.equal(out[0].cpu(), ref[0]) and torch.equal(out[1].cpu(), ref[1])
+
+
+def _grid_spheres(rng, dtype, Q, T, lo, hi):
+    f = lambda x: torch.as_tensor(x, dtype=dtype)
+    return (f(rng.uniform(lo, hi, (Q, 3))), f(rng.uniform(0.01, 0.05, Q)),
+            f(rng.uniform(lo, hi, (T, 3))), f(rng.uniform(0.01, 0.3, T)))
+
+
+# (Q, T, centre range, ins_slots, table_size): both signs of cells; negative
+# cells only; insertions cut at ins_slots (max_cells > ins) in a small table
+GRID_BUILD_CASES = [(500, 700, (-1.0, 1.0), 512, 4096),
+                    (64, 90, (-3.0, -1.0), 512, 256),
+                    (151, 397, (-0.5, 0.5), 8, 256)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", GRID_BUILD_CASES)
+def test_grid_build_matches_twin(dev, dtype, case):
+    """Kernel K: the bucket offsets, the ids sorted by (bucket, id) with
+    their copies, the T past the last run and max_cells equal the twin's
+    argsort formulation exactly."""
+    Q, T, (lo, hi), ins, tsz = case
+    qc, qr, tc, tr = _grid_spheres(np.random.default_rng(Q + T), dtype, Q, T, lo, hi)
+    h = bp.pick_cell_size(qr, tr)
+    mq = bp.max_query_radius(qr)
+    ref = gb.grid_build_plain(tc, tr, mq, h, ins, tsz)
+    out = gb.grid_build(tc.to(dev), tr.to(dev), mq.to(dev), h.to(dev), ins, tsz)
+    torch.cuda.synchronize()
+    for x, y, what in zip(out, ref, ("offsets", "tid_sorted", "max_cells")):
+        assert torch.equal(x.cpu(), y), what
+    assert int(ref[0][-1]) > 0 and (ins > int(ref[2])) == (case[3] == 512)
+
+
+def _rowk_inputs(rng, dtype, pred, Nq, nt, M=3, nv=60):
+    """Queries and targets in a 0.4 m box around the origin (cells of both
+    signs) with mesh ids from M meshes, a random allowed table, and vertex
+    tables drawn from nv vertices (so shared vertices and same-mesh
+    incidence occur)."""
+    f = lambda x: torch.as_tensor(x, dtype=dtype)
+    i32 = lambda x: torch.as_tensor(x, dtype=torch.int32)
+    qc, tc = f(rng.uniform(-0.2, 0.2, (Nq, 3))), f(rng.uniform(-0.2, 0.2, (nt, 3)))
+    qa, qb = f(rng.uniform(0.005, 0.03, Nq)), f(rng.uniform(0.0, 0.01, Nq))
+    ta, tb = f(rng.uniform(0.005, 0.05, nt)), f(rng.uniform(0.0, 0.01, nt))
+    allowed = torch.as_tensor(rng.random(M * M) < 0.8).to(torch.uint8)
+    allowed[0] = 1
+    tk = 3 if pred in ("pt_dd", "et", "et_rr") else 2
+    p = rk.Pred(pred, i32(rng.integers(0, M, Nq)), i32(rng.integers(0, M, nt)),
+                allowed, qidx=i32(rng.integers(0, nv, (Nq, 2))),
+                tidx=i32(rng.integers(0, nv, (nt, tk))))
+    return qc, tc, qa, qb, ta, tb, p
+
+
+ROWK_CASES = [("grid", "grid", p) for p in rk.PREDS] + \
+    [("dense", "pt", "pt_dd"), ("dense", "pt", "pt_rr"), ("dense", "pt", "none"),
+     ("dense", "ee", "ee_dd"), ("dense", "ee", "ee_rr"), ("dense", "ee", "none"),
+     ("dense", "et", "et"), ("dense", "et", "et_rr"), ("dense", "et", "none")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,form,pred", ROWK_CASES)
+def test_rowk_select_matches_twin(dev, dtype, mode, form, pred):
+    """Kernel L: the same (Nq, K) ids, max_row and max_occ as the twin's
+    mask + top_k, for every stem's predicate, on the hash grid (bucket runs
+    cut at occ_cap, copies dropped) and dense, with rows over K."""
+    rng = np.random.default_rng(len(pred) * 7 + len(form))
+    Nq, nt, K = 700, 900, 4
+    qc, tc, qa, qb, ta, tb, p = _rowk_inputs(rng, dtype, pred, Nq, nt)
+    sl = torch.tensor(0.004, dtype=dtype)
+    grid = None
+    if mode == "grid":
+        sph = rk.Sphere("grid", qa, ta)
+        h = bp.pick_cell_size(qa, ta)
+        offs, tids, _cells = gb.grid_build_plain(tc, ta, bp.max_query_radius(qa), h,
+                                                 64, bp.table_size_for(nt))
+        grid = rk.GridIndex(offs, tids, h, 24)
+    else:
+        sph = rk.Sphere(form, qa, ta, qb=qb, tb=tb, sl=sl)
+    ref = rk.rowk_select_plain(qc, tc, sph, p, K, grid)
+    to = lambda x: None if x is None else x.to(dev)
+    sph_d = rk.Sphere(sph.form, *(to(x) for x in sph[1:]))
+    p_d = rk.Pred(p.code, *(to(x) for x in p[1:]))
+    grid_d = None if grid is None else rk.GridIndex(
+        grid.offsets.to(dev), grid.tid_sorted.to(dev), grid.h.to(dev), grid.occ_cap)
+    out = rk.rowk_select(qc.to(dev), tc.to(dev), sph_d, p_d, K, grid_d)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0].cpu(), ref[0])
+    assert int(out[1]) == int(ref[1]) > K
+    if mode == "grid":
+        assert int(out[2]) == int(ref[2]) > grid.occ_cap
+    assert int(build.launches["rowk_select"]) > 0
 
 
 def _contact_geometry(rng, dtype, n_rows=5000):

@@ -40,6 +40,9 @@ def _module_name(path):
 # exist and import
 CONTACT_SLICE = [
     "stark_tpu_torch.collision.narrow_phase",
+    "stark_tpu_torch.collision.broad_phase",
+    "stark_tpu_torch.ops.grid_build",
+    "stark_tpu_torch.ops.rowk_select",
     "stark_tpu_torch.models.rigid_dynamics",
     "stark_tpu_torch.models.rigidbodies.inertia_tensors",
     "stark_tpu_torch.models.rigidbodies.inertia",
