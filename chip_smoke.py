@@ -51,7 +51,31 @@ Phases (every failure propagates; nothing is caught):
      sets of the grid against those of a dense-mode engine at the same
      state; time K, L, their twins, and ee_dd's grid path against the dense
      ball path (phases 12 and 13 run in a child process,
-     `chip_smoke.py --scale64 OUT`, started with phase 9's).
+     `chip_smoke.py --scale64 OUT`, started with phase 9's); and, at the same
+     state, kernel F's oracle ball pairs from the card's torch glue against
+     those of the CPU glue, the card's list (the port's pad) containing the
+     CPU's under JAX's pad;
+ 14. run the 32x32 spinning box with friction mu = 1 in float32 through the
+     staged solver (STARK_TPU_TORCH_NO_FUSED=1) for 0.2 simulated seconds:
+     the contact tables refreshed before every energy evaluation (K16:
+     kernel I's contact mode, then E), BDPCG over the arity groups (B at its
+     staged site, A, D), the oracle (F, G, H) in the line search, friction
+     tables once per step (I, J); print bench.py's fields with the live
+     pairs and friction rows and check them (finite, live pairs and friction
+     rows, no intersection, every kernel of the path launched);
+ 15. run the other staged configurations: the 32x32 hanging cloth in
+     float32 for 3 steps each under DirectLLT (kernel A's direct site and
+     the library Cholesky), ProjectOnDemand and Progressive, the same cloth
+     squeezed to a third of its width under Progressive (the projection
+     ladder escalates: kernel C with its selective mask), and
+     tests/test_rb_constraints.py's global_point scene on DirectLLT at 2 ms
+     for 50 steps;
+ 16. hold kernel B at its staged site and the K16 lists (exactly) against
+     their twins in f32 and f64 at phase 14's final state, and the whole
+     contact refresh against the engine's twin path; kernel A's direct site
+     on phase 15's DirectLLT input; time them and the Cholesky (phases 14
+     and 16 run in a child process, `chip_smoke.py --staged OUT`, started
+     with phase 9's).
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -81,6 +105,8 @@ N_MAIN, N_DENSE, MAIN_STEPS, DENSE_STEPS = 64, 32, 6, 3
 N_SBC, SBC_SECONDS = 32, 0.4
 FRICTION_MU, FRICTION_SECONDS = 1.0, 0.3
 N_SCALE, SCALE_SECONDS = 64, 0.15      # bench.py's BENCH_SCALE_QUADS / _SECONDS
+STAGED_SECONDS, STAGED_STEPS, RIGID_STEPS = 0.2, 3, 50
+NO_FUSED_ENV = "STARK_TPU_TORCH_NO_FUSED"
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # float32 rate outside the tensor cores; f64 outside the tensor cores is half
@@ -254,25 +280,24 @@ def kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32):
         torch.cuda.synchronize()
         err = check("hvp_bucket", dtype, (q - q_ref).abs(), sum_tol(q_abs, dtype))
         if main:
-            # the kernel reads, for each kept CSR entry (e, a), the 3 rows of
-            # H_e at a and in them the 3 columns of each non-dummy block of
-            # conn_e: 9 * n_e values per entry, 9 * n_e^2 per element
-            real = (topo64.conn_cat32 < ev64.n_blocks).sum(1)
-            b64 = topo64.conn_cat32.shape[1]
-            csr_k = topo64.csr_cat
-            perm_k = csr_k.perm[:int(csr_k.offsets[-1])]
-            e_of = perm_k.to(torch.int64) // b64
-            h_read = 9 * int(real[e_of].sum())
-            bnd = bound_ms(h_read * Hd.element_size()
-                           + nbytes(topo64.conn_cat32, p, perm_k, csr_k.offsets, q),
-                           2.0 * h_read, dtype)
+            bnd, h_read = hvp_bound([(topo64.conn_cat32, Hd, topo64.csr_cat)],
+                                    ev64.n_blocks, p, q, dtype)
+            # the one-call yardstick: torch.sparse.mm with the same global
+            # matrix as a BSR tensor of 3x3 blocks, built outside the timing
+            bsr = bsr_of([(topo64.conn_cat32, Hd)], ev64.n_blocks)
+            pv = p.reshape(-1, 1)
+            lib_q = torch.sparse.mm(bsr, pv).reshape(-1, 3)
+            torch.cuda.synchronize()
+            check("torch.sparse.mm (BSR) yardstick", dtype, (lib_q - q_ref).abs(),
+                  sum_tol(q_abs, dtype))
             results["hvp_bucket"] = dict(
                 max_abs_err=err,
                 ms=graph_ms(lambda: hb.hvp_bucket(
                     p, topo64.conn_cat32, Hd, topo64.csr_cat)),
                 plain_ms=graph_ms(lambda: hb.hvp_bucket_plain(
                     p, topo64.conn_cat32, Hd, topo64.csr_cat)),
-                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+                library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)),
+                bound_ms=bnd[0], bound_by=bnd[1],
                 shape=f"H {tuple(Hd.shape)} ({h_read} values read), "
                       f"p {tuple(p.shape)}")
 
@@ -722,15 +747,18 @@ def golden_sbc16(out_json: str) -> int:
     return 0
 
 
-def start_child(flag: str, name: str):
-    """Start `chip_smoke.py FLAG OUT_JSON` in a child process; (process,
-    result path, log file), both files in OUT_DIR."""
+def start_child(flag: str, name: str, go_file: str = None):
+    """Start `chip_smoke.py FLAG OUT_JSON [GO_FILE]` in a child process;
+    (process, result path, log file), both files in OUT_DIR. A child given
+    GO_FILE waits for it before its timings."""
     path = os.path.join(OUT_DIR, name + ".json")
-    if os.path.exists(path):
-        os.remove(path)
+    for f in (path, go_file):
+        if f and os.path.exists(f):
+            os.remove(f)
     logf = open(os.path.join(OUT_DIR, name + ".log"), "w")
     proc = subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), flag, path],
+        [sys.executable, os.path.abspath(__file__), flag, path]
+        + ([go_file] if go_file else []),
         stdout=logf, stderr=subprocess.STDOUT, cwd=ROOT)
     return proc, path, logf
 
@@ -1070,6 +1098,8 @@ class twins_on_cpu:
 
         twins = dict(
             ball_wide=bw.ball_wide_plain,
+            contact_pairs_ee=fp.contact_pairs_ee_plain,
+            contact_pairs_pt=fp.contact_pairs_pt_plain,
             # the site name only labels compact's launch count
             compact=lambda mask, cap, site: cp.compact_plain(mask, cap),
             ee_distance=nw.ee_distance_plain, pt_distance=nw.pt_distance_plain,
@@ -1281,6 +1311,7 @@ def scale64_checks(sim):
     def grid_ee():
         return eng._stem_pairs("ee_dd", Vs32, Vr32, th, sb + sp, "c_ee_dd", "m_")
 
+    info["w_et"] = et_ball_containment(eng, Vs32, Vr32, sb)
     info["ee_dd_grid_ms"] = events_ms(grid_ee, iters=5)
     info["ee_dd_dense_ms"] = events_ms(dense_ee, iters=5)
     info["ee_dd_dense_ball_ms"] = graph_ms(lambda: bw.ball_wide(
@@ -1370,6 +1401,488 @@ def scale64_run(out_json: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phases 14-16: the staged solver
+# ---------------------------------------------------------------------------
+def bsr_of(groups, n: int):
+    """The global matrix sum_e P_e^T H_e P_e of element blocks given as
+    [(conn (E, b) with dummy id >= n, H (E, 3b, 3b))], as a (3n, 3n) BSR
+    tensor with 3x3 blocks: the one-call PyTorch yardstick of kernel B
+    (torch.sparse.mm), built once outside any timing."""
+    dtype, dev = groups[0][1].dtype, groups[0][1].device
+    dense = torch.zeros((3 * n, 3 * n), dtype=dtype, device=dev)
+    ar = torch.arange(3, device=dev)
+    for conn, H in groups:
+        E, b = conn.shape
+        c = conn.long()
+        keep = (c[:, :, None] < n) & (c[:, None, :] < n)
+        e_i, i_i, j_i = torch.nonzero(keep, as_tuple=True)
+        rows = 3 * c[e_i, i_i][:, None, None] + ar[None, :, None]
+        cols = 3 * c[e_i, j_i][:, None, None] + ar[None, None, :]
+        vals = H.reshape(E, b, 3, b, 3)[e_i, i_i, :, j_i, :]
+        dense.index_put_((rows.expand(-1, 3, 3).reshape(-1),
+                          cols.expand(-1, 3, 3).reshape(-1)), vals.reshape(-1),
+                         accumulate=True)
+    return dense.to_sparse_bsr((3, 3))
+
+
+def hvp_bound(groups, n_blocks, p, q, dtype):
+    """Kernel B's bound over [(conn, H, csr)]: for each kept CSR entry (e, a)
+    the 3 rows of H_e at a and in them the 3 columns of each non-dummy
+    block of conn_e (9 * n_e values per entry), conn, p, the CSR and q once
+    per launch; 2 flops per value read."""
+    h_read, other = 0, 0
+    for conn, H, csr in groups:
+        real = (conn < n_blocks).sum(1)
+        perm_k = csr.perm[:int(csr.offsets[-1])]
+        e_of = perm_k.to(torch.int64) // conn.shape[1]
+        n_read = 9 * int(real[e_of].sum())
+        h_read += n_read
+        other += nbytes(conn, p, perm_k, csr.offsets, q)
+    return bound_ms(h_read * H.element_size() + other, 2.0 * h_read, dtype), h_read
+
+
+def direct_checks(sim):
+    """Phase 16's DirectLLT part, at the final state of phase 15's DirectLLT
+    cloth: kernel A's direct site against its twin in f32 and f64 (the f64
+    payload is the f32 one cast up), under the sum tolerance; the f32 pass
+    timed with the one-call index_add_, and the library Cholesky (upper, as
+    JAX's cho_factor) and its solve on the assembled matrix."""
+    from stark_tpu_torch.ops import segment_reduce as sr
+    from stark_tpu_torch.solver import project
+
+    nm = sim.stark.newton
+    ev = nm._ev
+    data, glob = sim._get_data(), sim._get_glob()
+    u = sim.stark._connector["get_dofs"]()
+    _E, _aux, g, hess = ev.energy_grad_hess(u, data, glob, None, ev.egh_csr(data))
+    hess, _n = project.project_all(hess, 1e-10, False, data, jacobi_sweeps=8,
+                                   psd_names=nm._psd_names)
+    pay32, csr = ev.direct_rows(data, hess)
+    results, info = {}, {}
+    for dtype in (torch.float64, torch.float32):
+        pay = pay32.to(dtype).contiguous()
+        out = sr.segment_reduce(pay, csr, "direct")
+        ref = sr.segment_reduce_plain(pay.cpu(), sr.Csr(*(
+            x.cpu() if isinstance(x, torch.Tensor) else x
+            for x in (csr.perm, csr.offsets, csr.seg, csr.n_seg, csr.n_rows))))
+        absref = sr.segment_reduce_plain(pay.abs(), csr)
+        torch.cuda.synchronize()
+        err = check("segment_reduce[direct]", dtype, (out.cpu() - ref).abs(),
+                    sum_tol(absref.cpu(), dtype))
+        if dtype != torch.float32:
+            continue
+        perm64 = csr.perm.to(torch.int64)
+        rows = torch.full((csr.n_rows,), csr.n_seg, dtype=torch.int64, device=DEVICE)
+        rows[perm64] = csr.seg
+        lib = torch.zeros((csr.n_seg + 1, 9), dtype=dtype, device=DEVICE)
+        n_kept = int(csr.offsets[-1])
+        bnd = bound_ms(n_kept * 9 * pay.element_size()
+                       + nbytes(csr.perm[:n_kept], csr.offsets, out), n_kept * 9, dtype)
+        results["segment_reduce[direct]"] = dict(
+            max_abs_err=err, ms=graph_ms(lambda: sr.segment_reduce(pay, csr, "direct")),
+            plain_ms=graph_ms(lambda: sr.segment_reduce_plain(pay, csr)),
+            library_ms=graph_ms(lambda: lib.index_add_(0, rows, pay)),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"payload {tuple(pay.shape)} -> ({csr.n_seg}, 9), "
+                  f"{ev.n_blocks} blocks")
+        n = ev.n_blocks
+        Hd = ev.assemble_dense_direct(data, hess)
+        Hd = Hd + 1e-30 * torch.eye(3 * n, dtype=dtype, device=DEVICE)
+        U, fail = torch.linalg.cholesky_ex(Hd, upper=True)
+        b = -g.reshape(-1, 1)
+        info["cholesky_ms"] = events_ms(lambda: torch.linalg.cholesky_ex(Hd, upper=True),
+                                        iters=10)
+        info["cholesky_solve_ms"] = events_ms(
+            lambda: torch.cholesky_solve(b, U, upper=True), iters=10)
+        info["cholesky_info"] = int(fail)
+        info["dense_n"] = 3 * n
+        log(f"  cholesky_ex (upper, {3 * n}^2 f32) {info['cholesky_ms']:.4f} ms, "
+            f"cholesky_solve {info['cholesky_solve_ms']:.4f} ms, info={int(fail)}")
+    return results, info
+
+
+def staged_configurations(size):
+    """Phase 15 in the main process: the 32x32 cloth (f32, 3 steps) under
+    DirectLLT, ProjectOnDemand and Progressive, the squeezed cloth under
+    Progressive, and the rigid global_point scene on DirectLLT at 2 ms for
+    RIGID_STEPS steps. Returns (DirectLLT launches, runs, the DirectLLT
+    cloth's simulation)."""
+    from stark_tpu_torch.core.settings import LinearSolver, ProjectionToPD
+
+    runs, launches_direct, sim_direct = {}, None, None
+    for label, mode, solver, squeeze in (
+            ("direct_llt", "ProjectedNewton", "DirectLLT", 1.0),
+            ("project_on_demand", "ProjectOnDemand", "BDPCG", 1.0),
+            ("progressive", "Progressive", "BDPCG", 1.0),
+            ("progressive_squeezed", "Progressive", "BDPCG", 0.3)):
+        sim, h, P = make_cloth(N_DENSE, size, "float32")
+        sim.get_settings().newton.projection_mode = getattr(ProjectionToPD, mode)
+        sim.get_settings().newton.linear_solver = getattr(LinearSolver, solver)
+        if squeeze == 1.0:
+            pin_top_corners(sim, h, P, size)
+        else:
+            # released unpinned from a third of its width: the compressed
+            # triangles' strain Hessians are indefinite
+            b, n = h.point_set.get_begin(), h.point_set.size()
+            sim._dyn._x0_host[b:b + n, 0] *= squeeze
+        log(f"  {label}: {mode}, {solver}" + (f", squeezed to {squeeze}" if squeeze < 1 else ""))
+        launches, run = run_steps(sim, STAGED_STEPS)
+        assert not sim.stark.newton._fused_eligible()
+        x = h.point_set.get_positions()
+        assert np.all(np.isfinite(x)), f"{label}: non-finite positions"
+        ratio = sim.get_logger().series["projected_hessians_ratio"]
+        run.update(projected_hessians_ratio=ratio, launches=launches,
+                   newton_per_step=sim.get_logger().series["newton_iterations"])
+        log(f"    projected ratio {[round(r, 4) for r in ratio]} launches={launches}")
+        if solver == "DirectLLT":
+            assert launches.get("segment_reduce[direct]", 0) > 0, \
+                "DirectLLT's dense scatter never launched"
+            launches_direct, sim_direct = launches, sim
+        else:
+            assert launches.get("hvp_bucket[staged]", 0) > 0, f"{label}: B never launched"
+        if squeeze < 1.0:
+            assert max(ratio) > 0.0 and launches.get("pd_project", 0) > 0, \
+                "the squeezed cloth never escalated the projection"
+        runs[label] = run
+    log("  rigid global_point on DirectLLT, 2 ms")
+    runs["rigid_global_point"] = rigid_global_point()
+    return launches_direct, runs, sim_direct
+
+
+def rigid_global_point():
+    """tests/test_rb_constraints.py::test_global_point on the card: a box held
+    at a point by a global-point constraint under a constant force,
+    DirectLLT, 2 ms steps, gravity off, RIGID_STEPS steps."""
+    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch.core.settings import LinearSolver
+    from stark_tpu_torch.models.rigidbodies.inertia_tensors import inertia_tensor_box
+
+    rng = np.random.default_rng(1234)
+    mass = float(rng.uniform(0.0, 100.0))
+    force = float(rng.uniform(0.0, 100.0)) + 10.0
+    s = Settings()
+    s.output.enable_output = False
+    s.output.enable_frame_writes = False
+    s.device.device = DEVICE
+    s.simulation.gravity = (0.0, 0.0, 0.0)
+    s.simulation.init_frictional_contact = False
+    s.simulation.max_time_step_size = 0.002
+    s.newton.linear_solver = LinearSolver.DirectLLT
+    s.newton.residual_tolerance_abs = 1e-6
+    s.newton.step_tolerance = 0.0
+    sim = Simulation(s)
+    box = sim.rigidbodies.add(mass, inertia_tensor_box(mass, (0.1, 0.1, 0.1)))
+    constraint = sim.rigidbodies.add_constraint_global_point(box, box.get_translation())
+    box.set_force([force, 0, 0])
+    launches, run = run_steps(sim, RIGID_STEPS)
+    C, f = constraint.get_violation_in_m_and_force()
+    log(f"    violation {C:.3e} m (tolerance {constraint.get_tolerance_in_m():.1e}), "
+        f"force {f:.4f} of {force:.4f} (the spring is still settling at 0.1 s)")
+    assert np.isfinite(C) and abs(C) < constraint.get_tolerance_in_m()
+    assert launches.get("segment_reduce[direct]", 0) > 0
+    run.update(violation_m=C, force=f, applied=force)
+    return run
+
+
+def pd_project_gaps(hess, psd_names):
+    """Kernel C's 8 Jacobi sweeps on one evaluation's element Hessians, each
+    family in f64 and f32, against the exact projection (eigh in f64 on the
+    CPU) and against the twin's 8 sweeps on the CPU: the largest gap of a
+    matrix over its largest entry (or its projection's), per family. Logged and recorded, not
+    gated: the sweep count is JAX's, and where a spectrum clusters the
+    8-sweep result moves with the rounding of its input (PERF.md)."""
+    from stark_tpu_torch.ops import pd_project as pd
+
+    gaps = {}
+    for name, H in sorted(hess.items()):
+        if H.shape[-1] <= 3 or H.shape[0] == 0:
+            continue
+        H64 = H.double().cpu()
+        exact, _ = pd.pd_project_plain(H64, 1e-10, False, jacobi_sweeps=0)
+        # a padding row's zero Hessian projects to eps * I
+        scale = torch.maximum(H64.abs().amax(dim=(1, 2)), exact.abs().amax(dim=(1, 2)))
+        for dtype in (torch.float64, torch.float32):
+            k8, _ = pd.pd_project(H.to(dtype).contiguous(), 1e-10, False, jacobi_sweeps=8)
+            t8, _ = pd.pd_project_plain(H64.to(dtype), 1e-10, False, jacobi_sweeps=8)
+            k8 = k8.double().cpu()
+
+            def rel(a, b):
+                return float(((a - b).abs().amax(dim=(1, 2)) / scale).max())
+            key = f"{name} {str(dtype).split('.')[-1]}"
+            gaps[key] = {"d": int(H.shape[-1]), "rows": int(H.shape[0]),
+                         "projected_by_solver": name not in psd_names,
+                         "kernel_vs_exact": rel(k8, exact),
+                         "twin_vs_exact": rel(t8.double(), exact),
+                         "kernel_vs_twin": rel(k8, t8.double())}
+            g = gaps[key]
+            log(f"  pd_project 8 sweeps {key:<40} d={g['d']:<2} rows={g['rows']:<5} "
+                f"solver projects={g['projected_by_solver']!s:<5} |C-exact|/max "
+                f"{g['kernel_vs_exact']:.2e} |twin-exact|/max {g['twin_vs_exact']:.2e} "
+                f"|C-twin|/max {g['kernel_vs_twin']:.2e}")
+    return gaps
+
+
+def staged_kernel_checks(sim):
+    """Phase 16 at phase 14's final state: kernel I's contact mode (K16)
+    exactly against its twins on the CPU in f64 and f32, the whole contact
+    refresh against the engine's twin path, kernel B at its staged site
+    over the arity groups of one evaluation (contact and friction tables
+    included) against the twins, under the sum tolerance; the f32 passes
+    timed, B beside the one-call BSR torch.sparse.mm."""
+    from stark_tpu_torch.ops import friction_pairs as fp, hvp_bucket as hb
+    from stark_tpu_torch.ops import segment_reduce as sr
+    from stark_tpu_torch.solver import project
+
+    eng, nm, u, Vs32, Vr32 = contact_state(sim)
+    ev = nm._ev
+    contact = sim.interactions.contact
+    ptol = contact.edge_edge_cross_norm_sq_cutoff
+    V32 = eng._vcat(Vs32, Vr32).contiguous()
+    scale = 1.0 + float(V32.abs().max())
+    results, info = {}, {}
+    kinds = {"pt": (fp.contact_pairs_pt, fp.contact_pairs_pt_plain),
+             "ee": (fp.contact_pairs_ee, fp.contact_pairs_ee_plain)}
+
+    def grid(kind, dtype, device):
+        V, th = V32.to(device=device, dtype=dtype), eng.th_vec().to(device=device, dtype=dtype)
+        if kind == "pt":
+            return (V, eng.d_tris_all.to(device), eng.d_pt_allowed.to(device),
+                    eng.d_p_mesh32.to(device), eng.d_t_mesh32.to(device), th,
+                    eng._cap("cl_pt"))
+        return (V, eng.d_edges_all.to(device), eng.d_ee_allowed.to(device),
+                eng.d_e_mesh32.to(device), th, eng._cap("cl_ee"), ptol)
+
+    for dtype in (torch.float64, torch.float32):
+        main = dtype == torch.float32
+        log(f"-- {dtype}")
+        eps = torch.finfo(dtype).eps
+        for kind, (kern, plain) in kinds.items():
+            args = grid(kind, dtype, DEVICE)
+            out = [x.cpu() for x in kern(*args)]
+            ref = plain(*grid(kind, dtype, "cpu"))
+            torch.cuda.synchronize()
+            cap = args[6] if kind == "pt" else args[5]
+            n, n_k = int(ref[4]), int(out[4])
+            assert n <= cap, f"contact_pairs[{kind}]: raise the capacity ({n} > {cap})"
+            same = n_k == n and all(torch.equal(out[i], ref[i]) for i in (0, 1, 3))
+            # the rows both lists hold, matched by pair key (both lists are
+            # row-major, so the common rows come in the same order): their
+            # thresholds equal, their distances compared below
+            nt = args[1].shape[0]
+            k_key = out[0][:n_k].long() * nt + out[1][:n_k].long()
+            r_key = ref[0][:n].long() * nt + ref[1][:n].long()
+            k_in, r_in = torch.isin(k_key, r_key), torch.isin(r_key, k_key)
+            assert torch.equal(k_key[k_in], r_key[r_in])
+            assert torch.equal(out[3][:n_k][k_in], ref[3][:n][r_in]), \
+                f"contact_pairs[{kind}] ({dtype}): thresholds differ from the twin's"
+            left_out = int((~k_in).sum()) + int((~r_in).sum())
+            if not same:
+                # f32: a pair whose keep verdict f32 rounding decides (its f64
+                # distance within 64 eps of the scale of dhat) may be listed
+                # by one side only; anything else is a fault
+                assert main, f"contact_pairs[{kind}] ({dtype}) differs from its twin"
+                ref64 = plain(*grid(kind, torch.float64, "cpu"))
+                n64 = int(ref64[4])
+                d64 = dict(zip((ref64[0][:n64].long() * nt + ref64[1][:n64].long()).tolist(),
+                               (ref64[2][:n64] - ref64[3][:n64]).tolist()))
+                for key in torch.cat([k_key[~k_in], r_key[~r_in]]).tolist():
+                    gap = d64.get(key)
+                    assert gap is None or abs(gap) <= 64 * eps * scale, \
+                        f"contact_pairs[{kind}]: pair {key} is not rounding-decided"
+            assert int(k_in.sum()) > 0, f"contact_pairs[{kind}]: no pair to compare"
+            d_err = (out[2][:n_k][k_in] - ref[2][:n][r_in]).abs()
+            err = check(f"contact_pairs[{kind}] d n={n} left_out={left_out}", dtype, d_err,
+                        torch.full_like(d_err, 64 * eps * scale))
+            if not main:
+                continue
+            # bound: the mask, vertices, table, mesh ids and th read once, the
+            # (cap,) lists and the count written once; one distance per
+            # allowed pair, priced by its region (I's friction pass's counts)
+            table, allowed = args[1], args[2]
+            meshes = args[3:5] if kind == "pt" else args[3:4]
+            nq, nt = allowed.shape
+            keep = allowed.bool()
+            ops = ops_of(region_hist(kind, args[0], table, keep, ptol), DIST_OPS[kind],
+                         REGION_OPS[kind])
+            el = args[0].element_size()
+            bnd = bound_ms(nq * nt + nbytes(args[0], table, *meshes, args[-2 if kind == "pt"
+                                                                           else -3])
+                           + cap * (8 + 2 * el) + 4, ops, dtype)
+            # the friction mode of the same kernel on the same inputs with
+            # mu = 1 everywhere evaluates the same pairs: timed beside it
+            mu1 = torch.ones((len(contact.contact_thicknesses),) * 2, dtype=dtype,
+                             device=DEVICE)
+            fargs = args[:-2] + (mu1,) + args[-2:] if kind == "pt" else \
+                args[:-3] + (mu1,) + args[-3:]
+            fkern = fp.friction_pairs_pt if kind == "pt" else fp.friction_pairs_ee
+            info[f"friction_mode_ms[{kind}]"] = graph_ms(lambda: fkern(*fargs))
+            results[f"contact_pairs[{kind}]"] = dict(
+                max_abs_err=err, ms=graph_ms(lambda: kern(*args)),
+                plain_ms=events_ms(lambda: plain(*args), iters=3),
+                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1], left_out=left_out,
+                shape=f"{nq}x{nt} grid, {int(keep.sum())} pairs evaluated "
+                      f"({ops / max(int(keep.sum()), 1):.1f} ops each), {n} kept, cap {cap}")
+            log(f"  contact_pairs[{kind}] {results[f'contact_pairs[{kind}]']['ms']:.4f} ms, "
+                f"its friction mode (mu = 1) on the same inputs "
+                f"{info[f'friction_mode_ms[{kind}]']:.4f} ms")
+
+    # the whole refresh (both kinds, routing, family tables, the cut to the
+    # live rows) against the engine's twin path, f32
+    th = eng.th_vec()
+    tables, counts = eng._settled(lambda: eng._contacts_fn(Vs32, Vr32, th))
+    assert sorted(counts) == sorted(eng.contact_count_keys())
+    with twins_on_cpu(eng):
+        tables_c, counts_c = eng._settled(lambda: eng._contacts_fn(Vs32, Vr32, th))
+    assert counts == counts_c, (counts, counts_c)
+    same_tree(tables, tables_c, "refresh_contacts tables")
+    info["refresh_counts"] = counts
+    log("  refresh_contacts (dense branch) equals the twin path's: "
+        + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())))
+
+    # B at its staged site on one evaluation's arity groups
+    eng._contact_data = tables
+    if eng._friction_data is None:
+        eng.refresh_friction(sim.stark.dt)
+    data, glob = sim._get_data(), sim._get_glob()
+    # as the staged solver evaluates: the live rows (the padding's projected
+    # eps * I is a diagonal term of the solver's own, outside B)
+    data = nm._live_tables(data)
+    _E, _aux, _g, hess = ev.energy_grad_hess(u, data, glob, None, ev.egh_csr(data))
+    info["pd_project_vs_exact"] = pd_project_gaps(hess, nm._psd_names)
+    hess, _n = project.project_all(hess, 1e-10, False, data, jacobi_sweeps=8,
+                                   psd_names=nm._psd_names)
+    groups = ev.staged_groups(data)
+    rng = np.random.default_rng(16)
+    p32 = torch.as_tensor(rng.normal(size=(ev.n_blocks, 3)), dtype=torch.float32,
+                          device=DEVICE)
+    info["staged_groups"] = {a: [list(g.names), int(g.conn32.shape[0])]
+                             for a, g in groups.items()}
+    for dtype in (torch.float64, torch.float32):
+        hh = {k: v.to(dtype) for k, v in hess.items()}
+        p = p32.to(dtype)
+        ctx = ev.hvp_context(groups, hh)
+        q = ev.hvp_ctx(p, ctx)
+        ctx_c = {a: type(g)(g.names, g.conn32.cpu(), sr.Csr(*(
+            x.cpu() if isinstance(x, torch.Tensor) else x
+            for x in (g.csr.perm, g.csr.offsets, g.csr.seg, g.csr.n_seg, g.csr.n_rows))),
+            g.H.cpu()) for a, g in ctx.items()}
+        q_ref = sum(hb.hvp_bucket_plain(p.cpu(), g.conn32, g.H, g.csr)
+                    for g in ctx_c.values())
+        q_abs = sum(hb.hvp_bucket_plain(p.cpu().abs(), g.conn32, g.H.abs(), g.csr)
+                    for g in ctx_c.values())
+        torch.cuda.synchronize()
+        err = check(f"hvp_bucket[staged] ({len(ctx)} groups)", dtype,
+                    (q.cpu() - q_ref).abs(), sum_tol(q_abs, dtype))
+        if dtype != torch.float32:
+            continue
+        trip = [(g.conn32, g.H, g.csr) for g in ctx.values()]
+        bnd, h_read = hvp_bound(trip, ev.n_blocks, p, q, dtype)
+        bsr = bsr_of([(g.conn32, g.H) for g in ctx.values()], ev.n_blocks)
+        pv = p.reshape(-1, 1)
+        lib_q = torch.sparse.mm(bsr, pv).reshape(-1, 3)
+        torch.cuda.synchronize()
+        check("torch.sparse.mm (BSR) yardstick", dtype, (lib_q.cpu() - q_ref).abs(),
+              sum_tol(q_abs, dtype))
+        results["hvp_bucket[staged]"] = dict(
+            max_abs_err=err,
+            ms=graph_ms(lambda: [hb.hvp_bucket(p, c, H, csr, "staged") for c, H, csr in trip]),
+            plain_ms=graph_ms(lambda: [hb.hvp_bucket_plain(p, c, H, csr)
+                                       for c, H, csr in trip]),
+            library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"{len(trip)} arity groups, rows "
+                  f"{[int(c.shape[0]) for c, _H, _c in trip]}, {h_read} values read")
+    return results, info
+
+
+def staged_run(out_json: str, go_file: str = None) -> int:
+    """Phases 14 and 16, run as `chip_smoke.py --staged OUT_JSON [GO_FILE]`:
+    the 32x32 spinning box with friction in float32 through the staged
+    solver for STAGED_SECONDS, its checks, then phase 16 at its final
+    state; writes the fields, the main path's launches and the kernel
+    records. With GO_FILE, phase 16 starts once that file exists: the main
+    process writes it when the other processes are done with the card, so
+    that phase 16's times are not shared with them."""
+    os.environ[NO_FUSED_ENV] = "1"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # four processes share the host's cores
+    t0 = time.perf_counter()
+    sim, cloth, spin = make_spinning_box(N_SBC, "float32", mu=FRICTION_MU)
+    sim.add_time_event(0.0, 10.0, spin)
+    steps = int(round(STAGED_SECONDS / sim.stark.settings.simulation.max_time_step_size))
+    launches, fields = run_spinning_box(sim, steps)
+    launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
+    fields["fused_eligible"] = sim.stark.newton._fused_eligible()
+    # the staged solver logs no host_syncs (its reads are not one per loop
+    # test as in the fused solve's count) and no shell rebuilds
+    for key in ("host_syncs_per_step", "broad_rebuilds", "pair_rebuilds",
+                "fused_retraces", "count_max", "solver_codes"):
+        fields.pop(key)
+    print("staged run: " + json.dumps(fields), flush=True)
+    print(f"launches={launches}", flush=True)
+    x = cloth.point_set.get_positions()
+    assert not fields["fused_eligible"], "the no-fused switch did not take"
+    assert np.all(np.isfinite(x)), "non-finite positions"
+    assert fields["live_pairs_last"] > 0, "no live contact pairs"
+    assert fields["friction_rows_last"] > 0, "no friction rows"
+    assert not intersects_now(sim), "the final state intersects"
+    assert_launched(launches, STAGED_KERNELS, "the staged path")
+    if go_file:
+        t_wait = time.perf_counter()
+        while not os.path.exists(go_file):
+            assert time.perf_counter() - t_wait < 1200, "no go from the main process"
+            time.sleep(0.5)
+        print(f"waited {time.perf_counter() - t_wait:.1f}s for the card", flush=True)
+    print("-- phase 16", flush=True)
+    torch.set_num_threads(4)     # the twins' CPU runs
+    results, info = staged_kernel_checks(sim)
+    with open(out_json, "w") as f:
+        json.dump({"fields": fields, "launches": launches, "results": results,
+                   "info": info, "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+def et_ball_containment(eng, Vs, Vr, slack):
+    """ROADMAP Queue 3 item 2 at the scale point's state: kernel F's oracle
+    ball pairs (w_et) from the card's torch glue (balls, radii, pad) against
+    those the CPU glue gives from the same state. Logs both differences
+    under JAX's pad (8 sqrt(eps) scale), and asserts that the card's list
+    under the port's pad (BOUND_PAD_ULPS more) contains the CPU's under
+    JAX's: K2's contract that F's list contains JAX's."""
+    from stark_tpu_torch.ops import ball_wide as bw
+
+    Vcat = eng._vcat(Vs, Vr)
+    eps = torch.finfo(Vcat.dtype).eps
+    cap = 4 * eng._cap("w_et")
+    Nt = eng.d_tris_all.shape[0]
+
+    def pairs(device, pad_of):
+        V = Vcat.to(device)
+        m, h = eng._balls_of_edges(V, eng.d_edges_all.to(device))
+        c, r = eng._balls_of_tris(V, eng.d_tris_all.to(device))
+        fn = bw.ball_wide if device == DEVICE else bw.ball_wide_plain
+        extra = torch.as_tensor(slack).to(device) + pad_of(V)
+        q, t, cnt = fn(m, h, c, r, eng.d_et_allowed.to(device), extra, cap)
+        n = int(cnt)
+        assert n <= cap
+        return set((q[:n].long() * Nt + t[:n].long()).cpu().tolist())
+
+    def jax_pad(V):
+        return 8.0 * float(np.sqrt(eps)) * (1.0 + torch.max(torch.abs(V)))
+
+    card_jax, cpu_jax = pairs(DEVICE, jax_pad), pairs("cpu", jax_pad)
+    card_port = pairs(DEVICE, eng._bound_pad)
+    out = {"w_et_card_jax_pad": len(card_jax), "w_et_cpu_jax_pad": len(cpu_jax),
+           "card_only": len(card_jax - cpu_jax), "cpu_only": len(cpu_jax - card_jax),
+           "w_et_card_port_pad": len(card_port),
+           "cpu_missing_from_card_port_pad": len(cpu_jax - card_port)}
+    log("  w_et (oracle ball pairs) card vs CPU glue: " + json.dumps(out))
+    assert cpu_jax <= card_port, "the card's ball list misses a pair of the CPU's"
+    return out
+
+
 KERNELS = [
     # name, source, the TPU-shaped JAX function it replaces
     ("segment_reduce[egh]", "stark_tpu_torch/csrc/segment_reduce.cu",
@@ -1413,6 +1926,16 @@ KERNELS = [
      "stark_tpu/collision/broad_phase.py:48"),
     ("rowk_select", "stark_tpu_torch/csrc/rowk_select.cu",
      "stark_tpu/models/interactions/contact_engine.py:586"),
+    # the staged solver (phases 14-15): q = H p per arity group (hvp_ctx),
+    # DirectLLT's dense scatter, and the contact refresh's dense branch
+    ("hvp_bucket[staged]", "stark_tpu_torch/csrc/hvp_bucket.cu",
+     "stark_tpu/solver/assembly.py:186"),
+    ("segment_reduce[direct]", "stark_tpu_torch/csrc/segment_reduce.cu",
+     "stark_tpu/solver/newton.py:190"),
+    ("contact_pairs[pt]", "stark_tpu_torch/csrc/friction_pairs.cu",
+     "stark_tpu/models/interactions/contact_engine.py:1019"),
+    ("contact_pairs[ee]", "stark_tpu_torch/csrc/friction_pairs.cu",
+     "stark_tpu/models/interactions/contact_engine.py:1031"),
 ]
 CONTACT_KERNELS = ("compact", "ball_wide", "pt_ee_distance[pt]",
                    "pt_ee_distance[ee]", "segment_triangle_any")
@@ -1420,6 +1943,15 @@ FRICTION_KERNELS = ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[p
                     "friction_rows[ee]")
 SOLVER_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "segment_reduce[dense]",
                   "hvp_bucket", "pd_project", "block3_inverse", "block3_apply")
+# the staged path of phase 14: no shells, so kernel G's EE distance does not
+# run there (the contact mode of I measures every EE pair itself); the
+# oracle's ball pairs (F), lower bounds (G[pt]) and any-hit (H) run in the
+# line search's [inv] stage
+STAGED_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket[staged]",
+                  "pd_project", "block3_inverse", "block3_apply", "compact", "ball_wide",
+                  "pt_ee_distance[pt]", "segment_triangle_any", "contact_pairs[pt]",
+                  "contact_pairs[ee]") + FRICTION_KERNELS
+STAGED_RUN_KERNELS = ("hvp_bucket[staged]", "contact_pairs[pt]", "contact_pairs[ee]")
 
 
 def assert_launched(launches, names, where: str):
@@ -1455,11 +1987,12 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phases 9, 10 and 12-13 run beside phases 3-8, each in a process of its own:
+    # phases 9, 10, 12-13 and 14 run beside phases 3-8, each in a process of its own:
     # the work is host-bound (one Python thread each) and the card mostly idle
     children = [start_child("--golden-sbc16", "golden_sbc16"),
                 start_child("--friction", "friction"),
-                start_child("--scale64", "scale64")]
+                start_child("--scale64", "scale64"),
+                start_child("--staged", "staged", os.path.join(OUT_DIR, "staged.go"))]
     try:
         return phases_3_to_11(card, t_start, *children)
     finally:
@@ -1470,7 +2003,8 @@ def main() -> int:
             logf.close()
 
 
-def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> int:
+def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
+                   staged_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -1553,6 +2087,15 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> 
     log("phase 8: kernels E-H (and C on the live pool) against their twins")
     results.update(contact_kernel_checks(sbc))
 
+    # ---- 15: the other staged configurations ----
+    log(f"phase 15: the staged solver's other configurations ({N_DENSE}x{N_DENSE} "
+        f"cloth, float32, {STAGED_STEPS} steps each; rigid global_point, "
+        f"{RIGID_STEPS} steps)")
+    launches_direct, runs15, sim_direct = staged_configurations(size64)
+    log("phase 16 (DirectLLT): kernel A's direct site against its twin, the Cholesky")
+    r16, info16 = direct_checks(sim_direct)
+    results.update(r16)
+
     # ---- 9: the contact golden (its own process, started after phase 2)
     log("phase 9: spinning_box_cloth_16 golden, float64, cuda")
     r9 = finish_child(golden_child, "the spinning_box_cloth_16 golden run")
@@ -1586,6 +2129,20 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> 
     log(f"  {r12['seconds']:.2f}s (beside phases 3-10)")
     launches_scale = r12["launches"]
     results.update(r12["results"])
+    # every other process is done with the card: phase 16 may time it
+    open(os.path.join(OUT_DIR, "staged.go"), "w").close()
+
+    # ---- 14 and 16: the staged spinning box (its own process, started with 9's)
+    log(f"phase 14: spinning_box_cloth {N_SBC}x{N_SBC} with friction mu={FRICTION_MU}, "
+        f"float32, cuda, {STAGED_SECONDS} s through the staged solver ({NO_FUSED_ENV}=1)")
+    r14 = finish_child(staged_child, "the staged run")
+    with open(os.path.join(OUT_DIR, "staged.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("staged run:", "launches=", "-- ", "  ", "waited")):
+                log("  " + line.strip())
+    log(f"  {r14['seconds']:.2f}s (beside phases 3-13)")
+    launches_staged = r14["launches"]
+    results.update(r14["results"])
 
     # ---- 11 ----
     kernels = []
@@ -1593,6 +2150,10 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> 
         r = results[name]
         if name in SCALE_KERNELS:
             launches = launches_scale.get(name, 0)
+        elif name in STAGED_RUN_KERNELS:
+            launches = launches_staged.get(name, 0)
+        elif name == "segment_reduce[direct]":
+            launches = launches_direct.get(name, 0)
         elif name in FRICTION_KERNELS:
             launches = launches_fric.get(name, 0)
         elif name in CONTACT_KERNELS:
@@ -1605,13 +2166,17 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child) -> 
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        **({"left_out": r["left_out"]} if "left_out" in r else {})})
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
                                       "spinning_box32_friction_f32": r10["fields"],
                                       "scale_64_f32": r12["fields"]},
                "scale_64_launches": launches_scale, "scale_64_phase13": r12["info"],
+               "staged_spinning_box32_friction_f32": r14["fields"],
+               "staged_launches": launches_staged, "staged_phase16": r14["info"],
+               "staged_configurations": runs15, "direct_llt_phase16": info16,
                "spinning_box_launches": launches_sbc,
                "friction_launches": launches_fric,
                "golden16_f64_max_dev": worst,
@@ -1636,4 +2201,6 @@ if __name__ == "__main__":
         sys.exit(friction_run(sys.argv[2]))
     if len(sys.argv) == 3 and sys.argv[1] == "--scale64":
         sys.exit(scale64_run(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--staged":
+        sys.exit(staged_run(*sys.argv[2:]))
     sys.exit(main())

@@ -94,10 +94,10 @@ class Stark:
     def add_init_hook(self, f: Callable[[], None]):
         self._init_hooks.append(f)
 
-    def connect(self, *, n_blocks_fn, get_dofs, set_dofs, get_glob,
+    def connect(self, *, n_blocks_fn, get_dofs, set_dofs, get_glob, get_data,
                 get_static_data, prime_host_dofs=None, get_engine=None):
         self._connector = dict(n_blocks_fn=n_blocks_fn, get_dofs=get_dofs,
-                               set_dofs=set_dofs, get_glob=get_glob,
+                               set_dofs=set_dofs, get_glob=get_glob, get_data=get_data,
                                get_static_data=get_static_data,
                                prime_host_dofs=prime_host_dofs,
                                get_engine=get_engine)
@@ -222,6 +222,7 @@ class Stark:
             settings=self.settings.newton,
             logger=self.logger,
             output=self.output,
+            get_data=c["get_data"],
             get_glob=c["get_glob"],
             get_dofs=c["get_dofs"],
             set_dofs=c["set_dofs"],
@@ -231,6 +232,7 @@ class Stark:
             jacobi_sweeps=self.settings.device.jacobi_sweeps,
             get_engine=c.get("get_engine"),
         )
+        self.newton.diagnostic_dir = self.settings.output.output_directory
         self._write_frame()
         self.callbacks.run_before_simulation()
         if not self.callbacks.newton.run_is_initial_state_valid():

@@ -1,4 +1,5 @@
-// Kernel I: the lagged-friction pair lists over the dense candidate grids.
+// Kernel I: the lagged-friction pair lists over the dense candidate grids,
+// and in its contact mode the staged contact lists.
 //
 // Replaces the dense branch of stark_tpu/models/interactions/
 // contact_engine.py `friction_tables` (:1549-1577, with `_pt_dense_d` :1019
@@ -22,6 +23,12 @@
 // contraction, the twin's operation order), so a pair at d ~ dhat gets the
 // twin's verdict and the lists equal the twin's.
 //
+// Contact mode (entry points stk_contact_pairs_pt/ee, launch names
+// contact_pairs[pt]/[ee]): the same pass without the mu predicate, the
+// dense branch of stark_tpu `_contacts_fn` (contact_engine.py:1192-1222):
+// every allowed pair with d <= dhat, in row-major order. The grids are
+// templated on kMu so the contact mode reads no mu table.
+//
 // Bound: operations. Every allowed pair with mu != 0 costs one exact
 // distance (the region test and one formula: 117-139 flops for PT, 65-99
 // for EE, counted per region in chip_smoke.py) per pass, and
@@ -33,7 +40,7 @@ int stk_exclusive_scan_i32(const int* counts, int m, int* offsets, int* total,
 
 #define FP_WARPS 8
 
-template <typename T>
+template <typename T, bool kMu>
 struct PtGrid {
   typedef T Real;
   const T* V;
@@ -48,7 +55,7 @@ struct PtGrid {
   __device__ __forceinline__ bool keep(int i, int j, T* d, T* dhat) const {
     if (!allowed[(long long)i * Nt + j]) return false;
     const int mq = mesh_q[i], mt = mesh_t[j];
-    if (mu[mq * M + mt] == T(0)) return false;
+    if (kMu && mu[mq * M + mt] == T(0)) return false;
     const int* tri = tris + 3LL * j;
     *d = point_triangle_distance(ld3(V + 3LL * i), ld3(V + 3LL * tri[0]),
                                  ld3(V + 3LL * tri[1]), ld3(V + 3LL * tri[2]));
@@ -57,7 +64,7 @@ struct PtGrid {
   }
 };
 
-template <typename T>
+template <typename T, bool kMu>
 struct EeGrid {
   typedef T Real;
   const T* V;
@@ -72,7 +79,7 @@ struct EeGrid {
   __device__ __forceinline__ bool keep(int i, int j, T* d, T* dhat) const {
     if (!allowed[(long long)i * Nt + j]) return false;
     const int ma = mesh[i], mb = mesh[j];
-    if (mu[ma * M + mb] == T(0)) return false;
+    if (kMu && mu[ma * M + mb] == T(0)) return false;
     const int* ea = edges + 2LL * i;
     const int* eb = edges + 2LL * j;
     *d = edge_edge_distance(ld3(V + 3LL * ea[0]), ld3(V + 3LL * ea[1]),
@@ -150,21 +157,21 @@ static int launch_pairs(const G& g, int cap, int* q, int* t,
   return stk_launch_status();
 }
 
-template <typename T>
+template <typename T, bool kMu>
 static int launch_pt(const T* V, const int* tris, int Np, int Nt,
                      const uint8_t* allowed, const int* mesh_p, const int* mesh_t,
                      const T* mu, const T* th, int M, int cap, int* q, int* t, T* d,
                      T* dhat, int* count, int* scratch, cudaStream_t stream) {
-  PtGrid<T> g{V, tris, allowed, mesh_p, mesh_t, mu, th, M, Np, Nt};
+  PtGrid<T, kMu> g{V, tris, allowed, mesh_p, mesh_t, mu, th, M, Np, Nt};
   return launch_pairs(g, cap, q, t, d, dhat, count, scratch, stream);
 }
 
-template <typename T>
+template <typename T, bool kMu>
 static int launch_ee(const T* V, const int* edges, int Ne, const uint8_t* allowed,
                      const int* mesh_e, const T* mu, const T* th, int M, double ptol,
                      int cap, int* a, int* b, T* d, T* dhat, int* count, int* scratch,
                      cudaStream_t stream) {
-  EeGrid<T> g{V, edges, allowed, mesh_e, mu, th, M, Ne, Ne, (T)ptol};
+  EeGrid<T, kMu> g{V, edges, allowed, mesh_e, mu, th, M, Ne, Ne, (T)ptol};
   return launch_pairs(g, cap, a, b, d, dhat, count, scratch, stream);
 }
 
@@ -174,7 +181,7 @@ STK_API int stk_friction_pairs_pt_f32(const float* V, const int* tris, int Np, i
                                       const float* th, int M, int cap, int* q, int* t,
                                       float* d, float* dhat, int* count, int* scratch,
                                       cudaStream_t stream) {
-  return launch_pt<float>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, mu, th, M, cap, q,
+  return launch_pt<float, true>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, mu, th, M, cap, q,
                           t, d, dhat, count, scratch, stream);
 }
 
@@ -184,7 +191,7 @@ STK_API int stk_friction_pairs_pt_f64(const double* V, const int* tris, int Np, 
                                       const double* th, int M, int cap, int* q, int* t,
                                       double* d, double* dhat, int* count,
                                       int* scratch, cudaStream_t stream) {
-  return launch_pt<double>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, mu, th, M, cap,
+  return launch_pt<double, true>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, mu, th, M, cap,
                            q, t, d, dhat, count, scratch, stream);
 }
 
@@ -194,7 +201,7 @@ STK_API int stk_friction_pairs_ee_f32(const float* V, const int* edges, int Ne,
                                       double ptol, int cap, int* a, int* b, float* d,
                                       float* dhat, int* count, int* scratch,
                                       cudaStream_t stream) {
-  return launch_ee<float>(V, edges, Ne, allowed, mesh_e, mu, th, M, ptol, cap, a, b,
+  return launch_ee<float, true>(V, edges, Ne, allowed, mesh_e, mu, th, M, ptol, cap, a, b,
                           d, dhat, count, scratch, stream);
 }
 
@@ -204,6 +211,43 @@ STK_API int stk_friction_pairs_ee_f64(const double* V, const int* edges, int Ne,
                                       double ptol, int cap, int* a, int* b, double* d,
                                       double* dhat, int* count, int* scratch,
                                       cudaStream_t stream) {
-  return launch_ee<double>(V, edges, Ne, allowed, mesh_e, mu, th, M, ptol, cap, a,
+  return launch_ee<double, true>(V, edges, Ne, allowed, mesh_e, mu, th, M, ptol, cap, a,
                            b, d, dhat, count, scratch, stream);
+}
+
+// contact mode: no mu table (nullptr, M = 0 are never read)
+STK_API int stk_contact_pairs_pt_f32(const float* V, const int* tris, int Np, int Nt,
+                                     const uint8_t* allowed, const int* mesh_p,
+                                     const int* mesh_t, const float* th, int cap, int* q,
+                                     int* t, float* d, float* dhat, int* count,
+                                     int* scratch, cudaStream_t stream) {
+  return launch_pt<float, false>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, nullptr, th, 0,
+                                 cap, q, t, d, dhat, count, scratch, stream);
+}
+
+STK_API int stk_contact_pairs_pt_f64(const double* V, const int* tris, int Np, int Nt,
+                                     const uint8_t* allowed, const int* mesh_p,
+                                     const int* mesh_t, const double* th, int cap, int* q,
+                                     int* t, double* d, double* dhat, int* count,
+                                     int* scratch, cudaStream_t stream) {
+  return launch_pt<double, false>(V, tris, Np, Nt, allowed, mesh_p, mesh_t, nullptr, th,
+                                  0, cap, q, t, d, dhat, count, scratch, stream);
+}
+
+STK_API int stk_contact_pairs_ee_f32(const float* V, const int* edges, int Ne,
+                                     const uint8_t* allowed, const int* mesh_e,
+                                     const float* th, double ptol, int cap, int* a, int* b,
+                                     float* d, float* dhat, int* count, int* scratch,
+                                     cudaStream_t stream) {
+  return launch_ee<float, false>(V, edges, Ne, allowed, mesh_e, nullptr, th, 0, ptol, cap,
+                                 a, b, d, dhat, count, scratch, stream);
+}
+
+STK_API int stk_contact_pairs_ee_f64(const double* V, const int* edges, int Ne,
+                                     const uint8_t* allowed, const int* mesh_e,
+                                     const double* th, double ptol, int cap, int* a,
+                                     int* b, double* d, double* dhat, int* count,
+                                     int* scratch, cudaStream_t stream) {
+  return launch_ee<double, false>(V, edges, Ne, allowed, mesh_e, nullptr, th, 0, ptol,
+                                  cap, a, b, d, dhat, count, scratch, stream);
 }

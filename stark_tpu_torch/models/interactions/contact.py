@@ -12,9 +12,12 @@ on every accepted step, bounded by the global parameters.
 Friction between two meshes (`set_friction`, Coulomb mu) is lagged: its
 pair anchors, tangent bases and normal forces freeze once per step at the
 step-start state. The fused solve builds those tables itself, once per
-solve (solver/fused.py, `ContactEngine.friction_tables`). The host refresh
-before each step that the JAX package keeps for its staged solver comes
-with that solver (ROADMAP Queue 1 P5).
+solve (solver/fused.py, `ContactEngine.friction_tables`). The staged solver
+reads host tables: `_before_time_step` refreshes the friction tables once
+per step (left empty while the fused solve is eligible, as it builds its
+own), `_before_energy_evaluation` the contact tables before every energy
+evaluation, and `dynamic_family_data` hands both to the solver; its line
+search asks the intersection oracle for every trial state.
 """
 from __future__ import annotations
 
@@ -112,11 +115,19 @@ class EnergyFrictionalContact:
         # grid), "dense" or "grid"; read when the engine is built
         self.broad_phase = "auto"
         self._engine = None
+        # set by the fused solve while it runs the host converged-state
+        # checks (it has run the intersection test on the device)
+        self._suppress_converged_intersection = False
 
+        stark.callbacks.add_before_time_step(self._before_time_step)
+        stark.callbacks.newton.add_before_energy_evaluation(self._before_energy_evaluation)
         stark.callbacks.newton.add_is_initial_state_valid(
+            lambda: self._is_state_valid())
+        stark.callbacks.newton.add_is_intermediate_state_valid(
             lambda: self._is_state_valid())
         stark.callbacks.newton.add_on_intermediate_state_invalid(
             self._on_intermediate_state_invalid)
+        stark.callbacks.newton.add_is_converged_state_valid(self._is_converged_state_valid)
         stark.callbacks.add_on_time_step_accepted(self._on_time_step_accepted)
 
         from . import contact_energies as ce
@@ -225,6 +236,48 @@ class EnergyFrictionalContact:
         if eng is None or not self.global_params.intersection_test_enabled:
             return True
         return not eng.has_intersection(self.stark.dt)
+
+    def _is_converged_state_valid(self) -> bool:
+        # the reference tests the converged state for intersections too
+        # (EnergyFrictionalContact.cpp:25)
+        if self._suppress_converged_intersection:
+            return True
+        return self._is_state_valid()
+
+    def _before_time_step(self):
+        eng = self.engine()
+        if eng is None or not self.global_params.friction_enabled \
+                or not self.stark.settings.simulation.init_frictional_contact:
+            return
+        nm = self.stark.newton
+        if nm is not None and nm._fused_eligible():
+            # the fused solve builds the dt = 0 friction tables itself
+            eng._friction_data = None
+            return
+        eng.refresh_friction(self.stark.dt)
+
+    def _before_energy_evaluation(self):
+        eng = self.engine()
+        if eng is not None:
+            eng.refresh_contacts(self.stark.dt)
+
+    def _friction_ready(self, eng):
+        """Build the step's friction tables if no staged step start has
+        (a staged solve after a fused-eligible _before_time_step, e.g. the
+        line-search diagnostic re-solve). The dt = 0 pass reads the
+        step-start state, so a lazy build freezes the same anchors."""
+        if self.global_params.friction_enabled \
+                and self.stark.settings.simulation.init_frictional_contact \
+                and eng._friction_data is None and eng.friction_enabled_now():
+            eng.refresh_friction(self.stark.dt)
+
+    def dynamic_family_data(self):
+        """The staged solver's contact and friction tables."""
+        eng = self.engine()
+        if eng is None:
+            return {}
+        self._friction_ready(eng)
+        return eng.current_family_data()
 
     def _on_intermediate_state_invalid(self):
         # stiffness hardening x2 (EnergyFrictionalContact.cpp:800-806)

@@ -1,5 +1,6 @@
-"""Device-side contact pipeline of the fused solve: candidate lists, pair
-tables, lagged-friction tables and the intersection oracle (dense path).
+"""Device-side contact pipeline: candidate lists, pair tables,
+lagged-friction tables and the intersection oracle of the fused solve, and
+the staged solver's per-evaluation contact refresh.
 
 Port of the dense path of `stark_tpu/models/interactions/contact_engine.py`.
 The reference rebuilds contact tables from a proximity pass over
@@ -30,6 +31,16 @@ tensors, and the host compares them with the capacities once per step
 (`_check_overflow`): an overflow bumps the capacity and the step is solved
 again. Capacities are learned in memory only (a persistent capacity cache
 is ROADMAP Queue 1 P10).
+
+The staged solver (solver/newton.py `_solve_staged`) keeps host tables
+instead of shells: `refresh_contacts` before every energy evaluation lists
+every allowed pair within dhat at the current DOFs (`_contacts_fn`: on the
+dense path kernel I's contact mode, `ops.friction_pairs.contact_pairs_pt/
+_ee`, routed through kernel E; on the per-stem path each stem's stage 1 and
+2), `refresh_friction` builds the friction tables once per step. Both keep
+their capacity-padded rows, as JAX's do: a projection turns an inactive
+row's zero Hessian into eps * I on its block, and JAX's staged sums count
+it, so the padding rows also take the blocks JAX's routing gives them.
 
 Large scenes take the JAX package's per-stem path instead (`_use_grid`:
 the contact model's `broad_phase` is "auto", "dense" or "grid"; "auto"
@@ -62,7 +73,8 @@ from torch.func import vmap
 from ... import maths
 from ...ops.ball_wide import ball_wide
 from ...ops.compact import compact
-from ...ops.friction_pairs import friction_pairs_ee, friction_pairs_pt
+from ...ops.friction_pairs import (contact_pairs_ee, contact_pairs_pt,
+                                   friction_pairs_ee, friction_pairs_pt)
 from ...ops.friction_rows import friction_rows_ee, friction_rows_pt
 from ...collision.broad_phase import (max_query_radius, pick_cell_size,
                                       table_size_for)
@@ -75,15 +87,26 @@ from ...ops.segment_triangle import segment_triangle_any
 # contact_engine.py:43)
 GRID_PAIR_THRESHOLD = 1 << 27
 BROAD_PHASES = ("auto", "dense", "grid")
+# ulps of the coordinate scale added to JAX's ball-bound pad (_bound_pad)
+BOUND_PAD_ULPS = 4.0
 # the kernel wrappers the engine launches, by name. Each engine reads them
 # from its `kern` attribute; a check may give one engine another table with
 # the same names and signatures (chip_smoke.py holds the broad shell and the
 # friction tables against their plain twins so).
-KERNELS = dict(ball_wide=ball_wide, compact=compact, ee_distance=ee_distance,
+KERNELS = dict(ball_wide=ball_wide, compact=compact, contact_pairs_ee=contact_pairs_ee,
+               contact_pairs_pt=contact_pairs_pt, ee_distance=ee_distance,
                friction_pairs_ee=friction_pairs_ee, friction_pairs_pt=friction_pairs_pt,
                friction_rows_ee=friction_rows_ee, friction_rows_pt=friction_rows_pt,
                grid_build=grid_build, pt_distance=pt_distance, rowk_select=rowk_select,
                segment_triangle_any=segment_triangle_any)
+
+
+def _pad_index(off: int, n: int) -> int:
+    """The local index a routed row past the count takes in JAX: its flat
+    row 0, localized (0 - off), gathered from n entries under JAX's rule
+    (a negative index wraps once, what stays out of range clamps)."""
+    i = -off + (n if off > 0 else 0)
+    return min(max(i, 0), max(n - 1, 0))
 
 
 class ContactEngine:
@@ -95,6 +118,13 @@ class ContactEngine:
         self._caps: Dict[str, int] = {}
         self._last_overflow = []
         self.kern = SimpleNamespace(**KERNELS)
+        # the staged solver's host tables: the contact tables of the last
+        # refresh_contacts, the friction tables of the step (None: not
+        # built for this step; the fused solve builds its own)
+        self._contact_data: Dict[str, dict] = {}
+        self._friction_data = None
+        # {table: rows before its count} of the staged tables above
+        self._live_rows: Dict[str, int] = {}
         self._build_static_tables()
 
     # ------------------------------------------------------------------
@@ -301,6 +331,10 @@ class ContactEngine:
                 # f_<stem> tables: their capacities together
                 h = sum(self._cap("f_" + s) for s in self._blocks()
                         if s.startswith(name[2:]))
+            elif name in ("cl_pt", "cl_ee"):
+                # kernel I's flat contact list of one kind (the staged
+                # refresh), routed into the <stem> tables
+                h = sum(self._cap(s) for s in self._blocks() if s.startswith(name[3:]))
             else:   # family pair tables (f_<stem>: the friction tables)
                 stem = name[2:] if name.startswith("f_") else name
                 h = {"pt_dd": 4 * n_sv, "pt_dr": 2 * n_sv,
@@ -316,7 +350,8 @@ class ContactEngine:
     def cap_names(self):
         """Every capacity name this engine can use."""
         stems = self._blocks()
-        names = {"w_pt", "w_ee", "w_et", "m_pt", "m_ee", "im_et", "f_pt", "f_ee"}
+        names = {"w_pt", "w_ee", "w_et", "m_pt", "m_ee", "im_et", "f_pt", "f_ee",
+                 "cl_pt", "cl_ee"}
         for s in stems:
             names |= {s, "f_" + s, "c_" + s, "cf_" + s, "m_" + s,
                       "g_" + s + "_ins", "g_" + s + "_occ"}
@@ -445,6 +480,21 @@ class ContactEngine:
                 keys += ["g_" + stem + "_ins", "g_" + stem + "_occ"]
         return keys
 
+    def contact_count_keys(self):
+        """The count keys of _contacts_fn: on the dense path kernel I's flat
+        contact lists, then the family tables; on the per-stem path each
+        block's family table, candidate row count and grid maxima
+        (stark_tpu :1685-1693 has the same keys but the flat lists)."""
+        if self._all_dense():
+            flat = [k for k in ("cl_pt", "cl_ee")
+                    if any(s.startswith(k[3:]) for s in self._blocks())]
+            return flat + list(self._blocks())
+        keys = []
+        for stem in self._blocks():
+            keys.append(stem)
+            keys += self._stage1_keys(stem)
+        return keys
+
     def friction_enabled_now(self) -> bool:
         """Friction tables are non-trivial: friction on and some pair mu."""
         return (self.model.global_params.friction_enabled
@@ -570,9 +620,14 @@ class ContactEngine:
 
     def _bound_pad(self, Vcat):
         """Slop on the ball threshold covering the cancellation of the
-        |a|^2 + |b|^2 - 2 a.b form at coordinate magnitude max|V|."""
+        |a|^2 + |b|^2 - 2 a.b form at coordinate magnitude max|V|: JAX's
+        8 sqrt(eps) scale, plus BOUND_PAD_ULPS ulps of the scale, so that
+        ball radii rounded an ulp apart (the card's reductions against the
+        CPU's) cannot drop a pair JAX's list holds. The ball test is a
+        conservative prefilter; the exact stages keep the same pairs."""
         scale = 1.0 + torch.max(torch.abs(Vcat))
-        return 8.0 * float(np.sqrt(torch.finfo(self.dtype).eps)) * scale
+        eps = torch.finfo(self.dtype).eps
+        return (8.0 * float(np.sqrt(eps)) + BOUND_PAD_ULPS * eps) * scale
 
     def _ball_wide(self, key, A, ra, B, rb, allowed, extra):
         cap = self._cap(key)
@@ -603,9 +658,10 @@ class ContactEngine:
             sel, cnt = self.kern.compact(valid & masks[stem], cap, "route_" + cap_pfx + stem)
             sl = sel.long()
             active = torch.arange(cap, device=q.device) < torch.clamp_max(cnt, cap)
-            # rows past the count (sel 0) may be of another kind: index 0
-            p_loc = torch.where(active, q[sl].long() - (0 if stem[3] == "d" else self.n_sv), 0)
-            t_loc = torch.where(active, t[sl].long() - (0 if stem[4] == "d" else self.n_ts), 0)
+            qo, to = (0, self.n_sv) if stem[3] == "d" else (self.n_sv, self.n_rv), \
+                (0, self.n_ts) if stem[4] == "d" else (self.n_ts, self.n_tr)
+            p_loc = torch.where(active, q[sl].long() - qo[0], _pad_index(*qo))
+            t_loc = torch.where(active, t[sl].long() - to[0], _pad_index(*to))
             d_sel = None if d_rows is None else d_rows[sl]
             out[stem] = (p_loc, t_loc, active, dhat_rows[sl], d_sel, cnt)
         return out
@@ -629,8 +685,10 @@ class ContactEngine:
             sel, cnt = self.kern.compact(valid & mask, cap, "route_" + cap_pfx + stem)
             sl = sel.long()
             active = torch.arange(cap, device=a.device) < torch.clamp_max(cnt, cap)
-            a_loc = torch.where(active, aa[sl].long() - (0 if stem == "ee_dd" else self.n_es), 0)
-            b_loc = torch.where(active, bb[sl].long() - (self.n_es if stem == "ee_rr" else 0), 0)
+            ao = (0, self.n_es) if stem == "ee_dd" else (self.n_es, self.n_er)
+            bo = (self.n_es, self.n_er) if stem == "ee_rr" else (0, self.n_es)
+            a_loc = torch.where(active, aa[sl].long() - ao[0], _pad_index(*ao))
+            b_loc = torch.where(active, bb[sl].long() - bo[0], _pad_index(*bo))
             d_sel = None if d_rows is None else d_rows[sl]
             out[stem] = (a_loc, b_loc, active, dhat_rows[sl], d_sel, cnt)
         return out
@@ -1014,6 +1072,108 @@ class ContactEngine:
                 fd["rows"].update(s=st[:, 0], t=st[:, 1], T=T, mu=mu, fn=fn)
             out["friction_" + stem] = fd
         return out, counts
+
+    # ------------------------------------------------------------------
+    # the staged solver's host tables (stark_tpu :1192-1231, 1512-1527,
+    # 1633-1653, 1899-1903)
+    # ------------------------------------------------------------------
+    def _contacts_fn(self, Vs, Vr, th):
+        """The contact family tables {contact_<stem>: {conn, rows}} of every
+        allowed pair within d <= dhat at (Vs, Vr), with their counts. Dense
+        path: kernel I's contact mode lists each kind's pairs in row-major
+        order (capacities cl_pt, cl_ee), routed per family by kernel E, the
+        rows of JAX's `allowed & d <= dhat` over its full distance
+        matrices. Per-stem path: each stem's stage 1 and 2 at zero slack
+        (kernels L, K, G, E), as JAX's `_pt_pairs`/`_ee_pairs`."""
+        out, counts = {}, {}
+        if self._all_dense():
+            Vcat = self._vcat(Vs, Vr)
+            dev = Vcat.device
+            if self._pt_stems():
+                cap = self._cap("cl_pt")
+                q, t, _d, dhat, cnt = self.kern.contact_pairs_pt(
+                    Vcat, self.d_tris_all, self.d_pt_allowed, self.d_p_mesh32,
+                    self.d_t_mesh32, th, cap)
+                counts["cl_pt"] = cnt
+                act = torch.arange(cap, device=dev) < torch.clamp_max(cnt, cap)
+                for stem, (p, tl, a2, dh, _ds, n) in self._route_pt(q, t, act, dhat).items():
+                    out["contact_" + stem] = self._pt_family_data(stem, p, tl, a2, dh)
+                    counts[stem] = n
+            if self._ee_stems():
+                cap = self._cap("cl_ee")
+                a, b, _d, dhat, cnt = self.kern.contact_pairs_ee(
+                    Vcat, self.d_edges_all, self.d_ee_allowed, self.d_e_mesh32, th, cap,
+                    self.model.edge_edge_cross_norm_sq_cutoff)
+                counts["cl_ee"] = cnt
+                act = torch.arange(cap, device=dev) < torch.clamp_max(cnt, cap)
+                for stem, (al, bl, a2, dh, _ds, n) in self._route_ee(a, b, act, dhat).items():
+                    out["contact_" + stem] = self._ee_family_data(stem, al, bl, a2, dh)
+                    counts[stem] = n
+            return out, counts
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+        for stem in self._blocks():
+            q, t, act, _d, dh, c = self._stem_pairs(stem, Vs, Vr, th, zero, "c_" + stem, "")
+            family = self._pt_family_data if stem.startswith("pt") else self._ee_family_data
+            out["contact_" + stem] = family(stem, q, t, act, dh)
+            counts.update(c)
+        return out, counts
+
+    def _settled(self, fn):
+        """fn() -> (tables, counts), re-run with bumped capacities until no
+        count overflows (one read of the counts per run); returns the tables,
+        every family at its capacity as in JAX, and the counts on the host,
+        and notes each table's live rows (live_rows)."""
+        while True:
+            tables, counts = fn()
+            keys = sorted(counts)
+            vals = (torch.stack([counts[k] for k in keys]).cpu().numpy().tolist()
+                    if keys else [])
+            if not self._check_overflow(keys, vals):
+                break
+        host = dict(zip(keys, vals))
+        for name, fd in tables.items():
+            kind, stem = name.split("_", 1)
+            self._live_rows[name] = min(int(host[stem if kind == "contact" else "f_" + stem]),
+                                        fd["conn"].shape[0])
+        return tables, host
+
+    def refresh_contacts(self, dt):
+        """Before every staged energy evaluation: the contact tables at the
+        current DOFs (x1 = x0 + dt * v1, bodies integrated over dt)."""
+        u = self.model.stark._connector["get_dofs"]()
+        dt_t = torch.as_tensor(dt, dtype=self.dtype, device=self.device)
+        Vs, Vr = self.world_from_u(u, self.engine_state(), dt_t)
+        th = self.th_vec()
+        self._contact_data, _ = self._settled(lambda: self._contacts_fn(Vs, Vr, th))
+
+    def refresh_friction(self, dt):
+        """Once per staged step: the lagged friction tables from the
+        step-start positions (friction_tables at dt = 0; `dt` is unused, as
+        in JAX's _friction_fn); empty when no mesh pair has a nonzero mu."""
+        if not any(v != 0.0 for v in self.model.pair_mu.values()):
+            self._friction_data = {}
+            return
+        th = self.th_vec()
+        mu = self._mu_mat()
+        k = torch.as_tensor(self.model.contact_stiffness, dtype=self.dtype,
+                            device=self.device)
+        Vs, Vr = self.step_start_world(self.engine_state())
+        self._friction_data, _ = self._settled(
+            lambda: self.friction_tables(Vs, Vr, th, mu, k))
+
+    def live_rows(self) -> Dict[str, int]:
+        """{table: its rows before the count} of the staged tables: the
+        rows past it are inactive padding, whose energy and derivatives are
+        zero."""
+        return self._live_rows
+
+    def current_family_data(self):
+        """The staged solver's dynamic tables: the last contact refresh and,
+        with friction on, the step's friction tables."""
+        data = dict(self._contact_data)
+        if self.model.global_params.friction_enabled and self._friction_data:
+            data.update(self._friction_data)
+        return data
 
     def step_start_world(self, state):
         """(Vs, Vr) at dt = 0: x1 = x0 and the bodies at (t0, q0), the

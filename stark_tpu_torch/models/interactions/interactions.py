@@ -19,5 +19,8 @@ class Interactions:
     def freeze(self, layout, dtype, device):
         self.contact.freeze(layout, dtype, device)
 
+    def dynamic_family_data(self):
+        return self.contact.dynamic_family_data()
+
     def glob_entries(self):
         return self.contact.glob_entries()

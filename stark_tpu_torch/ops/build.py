@@ -64,6 +64,10 @@ _SIGNATURES = {
                               _P, _P, _P, _P, _P],
     "stk_friction_pairs_ee": [_P, _P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P,
                               _P, _P, _P, _P],
+    "stk_contact_pairs_pt": [_P, _P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                             _P, _P],
+    "stk_contact_pairs_ee": [_P, _P, _I, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P, _P,
+                             _P],
     "stk_friction_rows_pt": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
                              _P, _P, _P, _P, _P, _P],
     "stk_friction_rows_ee": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _D,

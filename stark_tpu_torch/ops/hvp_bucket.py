@@ -4,7 +4,8 @@ Replaces stark_tpu/solver/assembly.py `hvp_bucket` (:559-572) and its
 one-hot `_scatter_q` (:514-522): q = sum_e H_e p[conn_e], summed per block,
 over the single-bucket (E, 3b, 3b) layout. The CSR groups the flat entries
 (e, a) of conn_cat by block (dummy entries dropped); it is the same CSR as
-`diag_bucket`'s and is built once per topology.
+`diag_bucket`'s and is built once per topology. The staged solver launches
+it once per arity group (stark_tpu assembly.py `hvp_ctx`, :186-196).
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ def hvp_bucket_plain(p: torch.Tensor, conn: torch.Tensor, H: torch.Tensor,
 
 
 def hvp_bucket(p: torch.Tensor, conn: torch.Tensor, H: torch.Tensor,
-               csr: Csr) -> torch.Tensor:
+               csr: Csr, site: str = None) -> torch.Tensor:
     """q = H p. p (n_blocks, 3); conn (E, b) int32 with dummy id n_blocks;
-    H (E, 3b, 3b); csr over conn.reshape(-1) with n_seg = n_blocks."""
+    H (E, 3b, 3b); csr over conn.reshape(-1) with n_seg = n_blocks. `site`
+    names a launch site other than the fused solve's for the launch count
+    ("staged": hvp_bucket[staged], one launch per arity group)."""
     n_blocks = p.shape[0]
     E, b = conn.shape
     if H.shape != (E, 3 * b, 3 * b) or p.shape != (n_blocks, 3) \
@@ -45,5 +48,5 @@ def hvp_bucket(p: torch.Tensor, conn: torch.Tensor, H: torch.Tensor,
             csr.perm.data_ptr(), csr.offsets.data_ptr(), q.data_ptr(),
             build.stream_ptr(p.device))
     build.check_status("hvp_bucket", rc)
-    build.count_launch("hvp_bucket")
+    build.count_launch("hvp_bucket" if site is None else f"hvp_bucket[{site}]")
     return q

@@ -71,6 +71,7 @@ class Simulation:
             get_dofs=self._get_dofs,
             set_dofs=self._set_dofs,
             get_glob=self._get_glob,
+            get_data=self._get_data,
             get_static_data=self._get_static_data,
             prime_host_dofs=self._prime_host_dofs,
             get_engine=lambda: self.interactions.contact.engine(),
@@ -192,6 +193,13 @@ class Simulation:
     def _get_static_data(self):
         self._refresh_dirty()
         return dict(self._device_data)
+
+    def _get_data(self):
+        """The static tables and the contact model's dynamic tables (the
+        staged solver's input)."""
+        data = self._get_static_data()
+        data.update(self.interactions.dynamic_family_data())
+        return data
 
     def _get_glob(self):
         dtype, device = self.stark.dtype, self.stark.device

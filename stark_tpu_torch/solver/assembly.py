@@ -1,7 +1,7 @@
 """Vmapped energy/gradient/Hessian evaluation and matrix-free operators.
 
-Port of the parts of `stark_tpu/solver/assembly.py` that the fused solve
-runs:
+Port of the parts of `stark_tpu/solver/assembly.py` that the fused and the
+staged solves run:
 
   * per-element energies, gradients and dense Hessians from `torch.func`
     (`vmap` over `grad_and_value` / `hessian`, mirroring `jax.hessian`),
@@ -27,6 +27,16 @@ on the device every Newton iteration without a host sync (`LivePool`).
 Kernels A and B run once per bucket and the two partial results are added.
 The JAX package uses one 15x15 bucket for everything; values agree, layouts
 differ.
+
+The staged solver (solver/newton.py `_solve_staged`) keeps JAX's arity
+groups instead (`hvp_context`, stark_tpu assembly.py:159-200, 251-268):
+arity groups ascending, families by name within a group, each group with
+its own CSR (`staged_groups`, built once per Newton iteration from the
+tables alone) and one launch of kernel B (site hvp_bucket[staged]) or A
+(diag) per group, the partial sums added in ascending arity as JAX adds
+them. No row is padded: an inertia row stays 3x3 where the fused bucket
+makes it 12x12. DirectLLT's dense (3n)^2 Hessian is summed per block pair by
+kernel A (site direct) in the order of JAX's scatter-adds.
 """
 from __future__ import annotations
 
@@ -73,6 +83,22 @@ class Topology:
     csr_cat: Csr
     pid_csr: Optional[Csr]
     tables: tuple
+
+
+@dataclass
+class StagedGroup:
+    """One arity group of the staged solver's tables: the families (sorted
+    names), their concatenated connectivity (E, a) int32 and its CSR; `H` is
+    filled by hvp_context with the (projected) element Hessians of one
+    linear solve. Inactive rows stay, as in JAX's context: their raw
+    Hessians are zero, but a projection makes them eps * I on their
+    (padding) blocks, and JAX's staged sums keep that. The contact and
+    friction tables come cut to their live rows: the solver adds their
+    padding's eps * I itself (NewtonsMethod._padding_slots)."""
+    names: tuple
+    conn32: torch.Tensor
+    csr: Csr
+    H: Optional[torch.Tensor] = None
 
 
 @dataclass
@@ -305,6 +331,90 @@ class Evaluators:
         return LivePool(conn32=conn32, H=H_live.contiguous(),
                         csr=build_csr(conn_live.reshape(-1), n),
                         pid_csr=pid_csr)
+
+    # ------------------------------------------------------------------
+    # staged solver: per-arity groups (stark_tpu assembly.py:159-268)
+    # ------------------------------------------------------------------
+    def staged_groups(self, data) -> Dict[int, StagedGroup]:
+        """The arity groups of `data` in canonical order (arity ascending,
+        families by name), each with its connectivity and CSR: built once
+        per Newton iteration, since they depend on the tables only."""
+        by_arity: Dict[int, list] = {}
+        for name in sorted(data):
+            by_arity.setdefault(self.fam_by_name[name].arity, []).append(name)
+        groups = {}
+        for a in sorted(by_arity):
+            names = tuple(by_arity[a])
+            conn = torch.cat([data[n]["conn"] for n in names])
+            groups[a] = StagedGroup(names=names,
+                                    conn32=conn.to(torch.int32).contiguous(),
+                                    csr=build_csr(conn.reshape(-1), self.n_blocks))
+        return groups
+
+    @staticmethod
+    def hvp_context(groups: Dict[int, StagedGroup], hess) -> Dict[int, StagedGroup]:
+        """The groups with their element Hessians concatenated in the
+        groups' family order (hess holds every family of the groups)."""
+        return {a: StagedGroup(g.names, g.conn32, g.csr,
+                               torch.cat([hess[n] for n in g.names]).contiguous())
+                for a, g in groups.items()}
+
+    def hvp_ctx(self, p, ctx: Dict[int, StagedGroup]):
+        """q = H p: kernel B once per arity group, the partial products
+        added in ascending arity."""
+        p = p.contiguous()
+        q = None
+        for a in sorted(ctx):
+            g = ctx[a]
+            qa = _hvp_kernel(p, g.conn32, g.H, g.csr, site="staged")
+            q = qa if q is None else q + qa
+        return q if q is not None else torch.zeros_like(p)
+
+    def hvp(self, p, data, hess):
+        """q = H p over the element Hessians of `data`'s families."""
+        return self.hvp_ctx(p, self.hvp_context(self.staged_groups(data), hess))
+
+    def diag_blocks_ctx(self, ctx: Dict[int, StagedGroup]):
+        """(n_blocks, 3, 3) diagonal blocks of the global Hessian: kernel A
+        (site diag) once per arity group, added in ascending arity."""
+        D = None
+        for a in sorted(ctx):
+            g = ctx[a]
+            Da = segment_reduce(self._diag_payload(g.H), g.csr, "diag")
+            D = Da if D is None else D + Da
+        if D is None:
+            D = torch.zeros((self.n_blocks, 9))
+        return D.reshape(-1, 3, 3)
+
+    def diag_blocks(self, data, hess):
+        return self.diag_blocks_ctx(self.hvp_context(self.staged_groups(data), hess))
+
+    def direct_rows(self, data, hess):
+        """DirectLLT's scatter as kernel A's input: the (R, 9) payload of
+        every element's 3x3 block pairs, in JAX's scatter order (families in
+        `hess` order, then the block slots i, j, then the elements; inactive
+        rows included, as in JAX), and its CSR over the n^2 block pairs."""
+        n = self.n_blocks
+        pids, payloads = [], []
+        for name, H_e in hess.items():
+            conn = data[name]["conn"]
+            a = conn.shape[1]
+            Hb = H_e.reshape(H_e.shape[0], a, 3, a, 3)
+            for i in range(a):
+                for j in range(a):
+                    pids.append(conn[:, i] * n + conn[:, j])
+                    payloads.append(Hb[:, i, :, j, :].reshape(-1, 9))
+        return torch.cat(payloads).contiguous(), build_csr(torch.cat(pids), n * n)
+
+    def assemble_dense_direct(self, data, hess):
+        """The dense (3n, 3n) global Hessian in block-major layout (row
+        3*i + c is component c of block i) of DirectLLT (stark_tpu
+        newton.py:193-204), summed per block pair by kernel A (site direct):
+        each pair's sum adds the same terms in the same order as JAX's
+        sequence of scatter-adds."""
+        n = self.n_blocks
+        D4 = segment_reduce(*self.direct_rows(data, hess), "direct")
+        return D4.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
 
     def scatter_rows(self, conn_cat):
         """Flat block-row vector of the single-bucket layout."""

@@ -1,5 +1,6 @@
-"""Kernels A-L on a CUDA card against their plain twins, and three small
-scenes on the card against the port on the CPU.
+"""Kernels A-L (and the staged solver's sites: B [staged], A [direct], I's
+contact mode) on a CUDA card against their plain twins, and small scenes on
+the card against the port on the CPU.
 
 These tests need a card and skip without one. On a machine with a card
 (where JAX may be absent, so the suite's conftest is left out):
@@ -335,15 +336,12 @@ def _nudge(x, k):
     return x
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("kind", ["pt", "ee"])
-@pytest.mark.parametrize("cap", [40, 100000])
-def test_friction_pairs_matches_twin(dev, dtype, kind, cap):
-    """Kernel I: the same kept pairs in the same row-major order as the
-    twin on the CPU, and the exact count past the capacity. Each query row's
-    nearest allowed pair is placed at d = dhat, and 1 and 3 ulps on either
-    side of it, through the query's own thickness (every primitive is its
-    own mesh; the targets' thickness is 0); some mesh pairs have mu = 0."""
+def _pair_grid(dtype, kind):
+    """A PT or EE pair grid where each query row's nearest allowed pair sits
+    at d = dhat, and 1 and 3 ulps on either side of it, through the query's
+    own thickness (every primitive is its own mesh; the targets' thickness
+    is 0); some mesh pairs have mu = 0. Returns (V, table, allowed, meshes,
+    mu, th, rows, j, steps, nt)."""
     rng = np.random.default_rng(8)
     V = torch.as_tensor(0.05 * rng.normal(size=(300, 3)), dtype=dtype)
     if kind == "pt":
@@ -381,15 +379,21 @@ def test_friction_pairs_matches_twin(dev, dtype, kind, cap):
     for k in (-3, -1, 0, 1, 3):
         sel = steps == k
         th[mesh_q[rows[sel]].long()] = _nudge(d_near[sel], k)
-    args = (V, table, allowed.to(torch.uint8),
-            *((mesh_q, mesh_t) if kind == "pt" else (mesh_q,)), mu, th, cap)
-    plain = fp.friction_pairs_pt_plain if kind == "pt" else fp.friction_pairs_ee_plain
-    kernel = fp.friction_pairs_pt if kind == "pt" else fp.friction_pairs_ee
+    meshes = (mesh_q, mesh_t) if kind == "pt" else (mesh_q,)
+    return V, table, allowed.to(torch.uint8), meshes, mu, th, rows, j, steps, nt
+
+
+def _check_pair_lists(dev, name, kernel, plain, args, V, rows, j, steps, nt, cap, mu_of):
+    """A pair-list kernel against its twin on the CPU: one launch counted,
+    the same kept pairs in the same order, the exact count past the
+    capacity, distances within 64 eps; with room for all, each boundary
+    pair kept exactly when it lies at or below dhat (and mu_of allows it)."""
+    dtype = V.dtype
     ref = plain(*args)
-    before = build.launches[f"friction_pairs[{kind}]"]
+    before = build.launches[name]
     out = kernel(*(x.to(dev) if isinstance(x, torch.Tensor) else x for x in args))
     torch.cuda.synchronize()
-    assert build.launches[f"friction_pairs[{kind}]"] == before + 1
+    assert build.launches[name] == before + 1
     n = int(ref[4])
     assert int(out[4]) == n > 100
     assert torch.equal(out[0].cpu(), ref[0]) and torch.equal(out[1].cpu(), ref[1])
@@ -399,8 +403,42 @@ def test_friction_pairs_matches_twin(dev, dtype, kind, cap):
     if cap > n:
         kept = set((ref[0].long() * nt + ref[1].long())[:n].tolist())
         for r, jj, k in zip(rows.tolist(), j.tolist(), steps.tolist()):
-            if mu[mesh_q[r], mesh_t[jj]] != 0:
+            if mu_of(r, jj):
                 assert (r * nt + jj in kept) == (k >= 0), (r, k)
+    return n
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["pt", "ee"])
+@pytest.mark.parametrize("cap", [40, 100000])
+def test_friction_pairs_matches_twin(dev, dtype, kind, cap):
+    """Kernel I: the same kept pairs in the same row-major order as the
+    twin on the CPU, and the exact count past the capacity, on pairs placed
+    at d = dhat and 1 and 3 ulps either side; some mesh pairs have mu = 0."""
+    V, table, allowed, meshes, mu, th, rows, j, steps, nt = _pair_grid(dtype, kind)
+    args = (V, table, allowed, *meshes, mu, th, cap)
+    plain = fp.friction_pairs_pt_plain if kind == "pt" else fp.friction_pairs_ee_plain
+    kernel = fp.friction_pairs_pt if kind == "pt" else fp.friction_pairs_ee
+    _check_pair_lists(dev, f"friction_pairs[{kind}]", kernel, plain, args, V, rows, j,
+                      steps, nt, cap,
+                      lambda r, jj: bool(mu[meshes[0][r], meshes[-1][jj]] != 0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("kind", ["pt", "ee"])
+@pytest.mark.parametrize("cap", [40, 100000])
+def test_contact_pairs_matches_twin(dev, dtype, kind, cap):
+    """Kernel I's contact mode (the staged contact refresh, K16): every
+    allowed pair at d <= dhat whatever the mu table, the same list as the
+    twin's, and more pairs than the friction mode keeps on the same grid."""
+    V, table, allowed, meshes, mu, th, rows, j, steps, nt = _pair_grid(dtype, kind)
+    args = (V, table, allowed, *meshes, th, cap)
+    plain = fp.contact_pairs_pt_plain if kind == "pt" else fp.contact_pairs_ee_plain
+    kernel = fp.contact_pairs_pt if kind == "pt" else fp.contact_pairs_ee
+    n = _check_pair_lists(dev, f"contact_pairs[{kind}]", kernel, plain, args, V, rows, j,
+                          steps, nt, cap, lambda r, jj: True)
+    fplain = fp.friction_pairs_pt_plain if kind == "pt" else fp.friction_pairs_ee_plain
+    assert n > int(fplain(V, table, allowed, *meshes, mu, th, cap)[4])
 
 
 def _pt_row_geometry(rng, n):
@@ -613,4 +651,183 @@ def test_friction_box_on_card_tracks_the_cpu_port(dev):
     x_cpu, codes_cpu, newton_cpu, fric_cpu = run("cpu")
     assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
     assert fric_gpu == fric_cpu and fric_cpu[-1]["f_pt"] > 0
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6
+
+
+def _staged_cloth(device, mode="ProjectedNewton", solver="BDPCG", n=6, squeeze=1.0):
+    """A 6x6 hanging cloth, f64, on the staged solver's configuration;
+    squeeze < 1 scales its x-coordinates after pinning, so the compressed
+    triangles' strain Hessians are indefinite and the projection ladder
+    escalates."""
+    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch.core.settings import LinearSolver, ProjectionToPD
+    from stark_tpu_torch.models.deformables.energies import PrescribedPositionsParams
+    from stark_tpu_torch.presets.presets import SurfaceParams
+
+    s = Settings()
+    s.output.enable_output = False
+    s.output.enable_frame_writes = False
+    s.simulation.init_frictional_contact = False
+    s.device.device = device
+    s.newton.projection_mode = getattr(ProjectionToPD, mode)
+    s.newton.linear_solver = getattr(LinearSolver, solver)
+    sim = Simulation(s)
+    h = sim.presets.deformables.add_surface_grid(
+        "", (0.3, 0.3), (n, n), SurfaceParams.Cotton_Fabric())
+    sim.deformables.prescribed_positions.add(h.point_set, [0, n],
+                                             PrescribedPositionsParams())
+    b, m = h.point_set.get_begin(), h.point_set.size()
+    sim._dyn._x0_host[b:b + m, 0] *= squeeze
+    return sim, h
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_staged_hvp_and_direct_assembly_match_twins(dev, dtype):
+    """Kernel B at its staged site (one launch per arity group) and kernel
+    A's direct site (DirectLLT's dense Hessian) on a 6x6 cloth's element
+    Hessians at a random state, against the twins on the CPU: within the
+    sum tolerance 64 eps * sum|terms|."""
+    sim, _h = _staged_cloth("cpu", solver="DirectLLT")
+    sim.stark._initialize()
+    nm = sim.stark.newton
+    ev = nm._ev
+
+    def cast(x):
+        return x.to(dtype) if x.is_floating_point() else x
+
+    data = {k: {"conn": v["conn"], "rows": {r: cast(x) for r, x in v["rows"].items()}}
+            for k, v in sim._get_data().items()}
+    glob = {k: cast(v) for k, v in sim._get_glob().items()}
+    rng = np.random.default_rng(5)
+    u = torch.as_tensor(rng.normal(0.0, 0.1, (nm.n_blocks, 3)), dtype=dtype)
+    p = torch.as_tensor(rng.normal(size=(nm.n_blocks, 3)), dtype=dtype)
+    _E, _aux, _g, hess = ev.energy_grad_hess(u, data, glob, None, ev.egh_csr(data))
+    absh = {k: v.abs() for k, v in hess.items()}
+
+    def on(device):
+        dd = {k: {"conn": v["conn"].to(device),
+                  "rows": {r: x.to(device) for r, x in v["rows"].items()}}
+              for k, v in data.items()}
+        hh = {k: v.to(device) for k, v in hess.items()}
+        groups = ev.staged_groups(dd)
+        before = build.launches["hvp_bucket[staged]"]
+        q = ev.hvp_ctx(p.to(device), ev.hvp_context(groups, hh))
+        launched = build.launches["hvp_bucket[staged]"] - before
+        before_d = build.launches["segment_reduce[direct]"]
+        D = ev.assemble_dense_direct(dd, hh)
+        launched_d = build.launches["segment_reduce[direct]"] - before_d
+        return q.cpu(), D.cpu(), launched, launched_d, len(groups)
+
+    q_g, D_g, launched, launched_d, n_groups = on(dev)
+    q_c, D_c, _l, _ld, _n = on("cpu")
+    groups = ev.staged_groups(data)
+    aq = ev.hvp_ctx(p.abs(), ev.hvp_context(groups, absh))
+    aD = ev.assemble_dense_direct(data, absh)
+    assert launched == n_groups >= 3 and launched_d == 1
+    assert torch.all((q_g - q_c).abs() <= _tol(aq, dtype, 64.0))
+    assert torch.all((D_g - D_c).abs() <= _tol(aD, dtype, 64.0))
+
+
+@pytest.mark.parametrize("mode,solver", [("ProjectedNewton", "DirectLLT"),
+                                         ("Progressive", "BDPCG"),
+                                         ("ProjectOnDemand", "BDPCG")])
+def test_staged_cloth_on_card_tracks_the_cpu_port(dev, mode, solver):
+    """Three f64 steps of the 6x6 cloth through the staged solver on the card
+    against the same port on the CPU: the same Newton counts, positions
+    within 1e-8 m; kernel A's direct site (DirectLLT) or B at its staged
+    site launched."""
+    def run(device):
+        sim, h = _staged_cloth(device, mode, solver)
+        for _ in range(3):
+            assert sim.run_one_time_step()
+        return h.point_set.get_positions(), sim.get_logger().series["newton_iterations"]
+
+    build.reset_launches()
+    x_gpu, newton_gpu = run("cuda")
+    site = "segment_reduce[direct]" if solver == "DirectLLT" else "hvp_bucket[staged]"
+    assert build.launches[site] > 0
+    x_cpu, newton_cpu = run("cpu")
+    assert newton_gpu == newton_cpu
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-8
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_project_selective_matches_twin(dev, dtype):
+    """The Progressive mode's projection (kernel C with an element mask from
+    a block mask) on a squeezed 6x6 cloth's element Hessians, whose strain
+    blocks are indefinite, against the twin with the same 8 Jacobi sweeps on
+    the CPU: rebuilt matrices within 2000 eps of each matrix's largest
+    entry, unselected elements untouched. The families PSD by construction
+    pass through, as in the solver's call: on their flat-bending blocks (a
+    triple eigenvalue over nine near-zero ones) the 8-sweep projection
+    moves with the rounding of its input, the twin's and JAX's alike
+    (tests/test_torch_staged.py::test_jacobi_sweeps_on_clustered_spectra),
+    so the kernel's and the twin's end far apart there."""
+    from stark_tpu_torch.solver import project
+
+    sim, _h = _staged_cloth("cpu", "Progressive", squeeze=0.3)
+    sim.stark._initialize()
+    ev = sim.stark.newton._ev
+    psd = sim.stark.newton._psd_names
+    data, glob = sim._get_data(), sim._get_glob()
+    u = torch.zeros((ev.n_blocks, 3), dtype=torch.float64)
+    _E, _aux, grad, hess = ev.energy_grad_hess(u, data, glob, None, ev.egh_csr(data))
+    hess = {k: v.to(dtype) for k, v in hess.items()}
+    gmax = torch.max(torch.abs(grad), dim=1).values
+    block_mask = gmax >= torch.quantile(gmax, 0.5)
+
+    def on(device):
+        dd = {k: {"conn": v["conn"].to(device),
+                  "rows": {r: x.to(device) for r, x in v["rows"].items()}}
+              for k, v in data.items()}
+        out, n = project.project_selective({k: v.to(device) for k, v in hess.items()},
+                                           dd, 1e-10, False, block_mask.to(device),
+                                           jacobi_sweeps=8, psd_names=psd)
+        return {k: v.cpu() for k, v in out.items()}, int(n)
+
+    before = build.launches["pd_project"]
+    out_g, n_g = on(dev)
+    assert build.launches["pd_project"] > before
+    out_c, n_c = on("cpu")
+    assert n_g > 0 and n_c > 0
+    assert "EnergyTriangleStrain" not in psd
+    for name, H in hess.items():
+        conn = data[name]["conn"]
+        sel = torch.any(block_mask[conn], dim=1) & (data[name]["rows"]["active"] > 0.5) \
+            & (name not in psd)
+        assert torch.equal(out_g[name][~sel], H[~sel]), name
+        scale = H.abs().amax(dim=(1, 2), keepdim=True)
+        tol = 2000.0 * torch.finfo(dtype).eps * scale + torch.finfo(dtype).tiny
+        assert torch.all((out_g[name] - out_c[name]).abs() <= tol), name
+
+
+def test_staged_friction_box_on_card_tracks_the_cpu_port(dev, monkeypatch):
+    """Five f64 steps of the 6x6 spinning box with friction mu = 1 through
+    the staged solver on the card (K16: kernel I's contact mode before every
+    energy evaluation; I and J once per step) against the same port on the
+    CPU: the same codes, Newton counts and live pairs, close positions."""
+    from stark_tpu_torch.tools.scenes import spinning_box_cloth
+
+    monkeypatch.setenv("STARK_TPU_TORCH_NO_FUSED", "1")
+
+    def run(device):
+        sim, cloth, spin = spinning_box_cloth(6, "float64", device, mu=1.0)
+        sim.add_time_event(0.0, 10.0, spin)
+        live = []
+        for _ in range(5):
+            assert sim.run_one_time_step()
+            live.append((sim.stark.newton.live_contact_pairs(),
+                         sim.stark.newton.friction_rows()))
+        lg = sim.get_logger()
+        return (cloth.point_set.get_positions(), lg.series["solver_code"],
+                lg.series["newton_iterations"], live)
+
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu, live_gpu = run("cuda")
+    for k in ("contact_pairs[pt]", "contact_pairs[ee]", "friction_pairs[pt]",
+              "friction_rows[pt]", "hvp_bucket[staged]", "segment_triangle_any"):
+        assert build.launches[k] > 0, k
+    x_cpu, codes_cpu, newton_cpu, live_cpu = run("cpu")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert live_gpu == live_cpu and live_cpu[-1][0] > 0
     assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6

@@ -1,5 +1,7 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
-`chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`."""
+`chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`, and
+every module of the contact and staged-solver slices imports without a
+card or nvcc."""
 import ast
 import importlib
 import os
@@ -62,15 +64,33 @@ CONTACT_SLICE = [
 ]
 
 
+# the staged solver's slice: its solver stages, the kernels it launches
+# (B at its staged site, A, C's selective mask, D, I's contact mode) and the
+# host plumbing of the per-evaluation contact refresh
+STAGED_SLICE = [
+    "stark_tpu_torch.solver.newton",
+    "stark_tpu_torch.solver.assembly",
+    "stark_tpu_torch.solver.project",
+    "stark_tpu_torch.solver.pcg",
+    "stark_tpu_torch.ops.hvp_bucket",
+    "stark_tpu_torch.ops.segment_reduce",
+    "stark_tpu_torch.ops.pd_project",
+    "stark_tpu_torch.ops.block3",
+    "stark_tpu_torch.simulation",
+    "stark_tpu_torch.core.stark",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
     assert any(f.endswith("solver/fused.py") for f in files)
     names = {_module_name(f) for f in files}
     assert set(CONTACT_SLICE) <= names
+    assert set(STAGED_SLICE) <= names
 
 
-@pytest.mark.parametrize("name", CONTACT_SLICE)
+@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""

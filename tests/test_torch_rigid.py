@@ -2,11 +2,12 @@
 joint's constraints against `stark_tpu`, and the constraint force balances
 of tests/test_rb_constraints.py run through the port.
 
-The JAX suite solves those scenes with the staged DirectLLT solver (ROADMAP
-Queue 1 P5 in the port), 1500 steps of 2 ms; the port runs them through the
-fused BDPCG solve at 10 ms steps for 0.5 s, past the settling of the
-penalty spring (implicit Euler damps its ~140 rad/s mode within a few
-steps), and holds the same force balance to the same 1e-3.
+The JAX suite solves those scenes with the staged DirectLLT solver, 1500
+steps of 2 ms. The default tier runs them through the port's fused BDPCG
+solve at 10 ms steps for 0.5 s, past the settling of the penalty spring
+(implicit Euler damps its ~140 rad/s mode within a few steps), and holds the
+same force balance to the same 1e-3; the slow tier runs them as JAX does,
+on the port's staged DirectLLT solver at 2 ms for 3 s.
 """
 import math
 
@@ -20,6 +21,7 @@ from torch.func import grad_and_value, hessian, vmap
 import stark_tpu
 import stark_tpu_torch
 from stark_tpu import maths as jm
+from stark_tpu_torch.core.settings import LinearSolver
 from stark_tpu.models.rigidbodies.inertia_tensors import inertia_tensor_box
 from stark_tpu_torch import maths as tm
 from stark_tpu_torch.utils import mesh_utils
@@ -151,16 +153,20 @@ def test_rigid_step_tracks_stark_tpu():
     assert np.max(np.abs(xt - xj)) < 1e-9
 
 
-def _settings(name):
+def _settings(name, direct=False):
+    """The fused default (10 ms for 0.5 s) or, with direct, the JAX suite's
+    DirectLLT at 2 ms for 3 s (tests/test_rb_constraints.py:21-33)."""
     s = stark_tpu_torch.Settings()
     s.output.simulation_name = name
     s.output.enable_output = False
     s.output.enable_frame_writes = False
     s.device.device = "cpu"
-    s.execution.end_simulation_time = 0.5
+    s.execution.end_simulation_time = 3.0 if direct else 0.5
     s.simulation.gravity = (0.0, 0.0, 0.0)
     s.simulation.init_frictional_contact = False
-    s.simulation.max_time_step_size = 0.01
+    s.simulation.max_time_step_size = 0.002 if direct else 0.01
+    if direct:
+        s.newton.linear_solver = LinearSolver.DirectLLT
     s.newton.residual_tolerance_abs = 1e-6
     s.newton.step_tolerance = 0.0
     return s
@@ -170,41 +176,67 @@ def _box(sim):
     return sim.rigidbodies.add(MASS, inertia_tensor_box(MASS, (0.1, 0.1, 0.1)))
 
 
-def test_inertia():
-    """Port of tests/test_rb_constraints.py::test_inertia."""
-    s = _settings("inertia")
+def _inertia(direct):
+    s = _settings("inertia", direct)
     s.simulation.gravity = (PERTURBATION, 0.0, 0.0)
     sim = stark_tpu_torch.Simulation(s)
     box0 = _box(sim)
     constraint = sim.rigidbodies.add_constraint_global_point(box0, box0.get_translation())
-    sim.run()
+    assert sim.run()
     C, f = constraint.get_violation_in_m_and_force()
     assert abs(C) < constraint.get_tolerance_in_m()
     assert abs(f - PERTURBATION * MASS) / (PERTURBATION * MASS) < 1e-3
+    return sim
+
+
+def _global_point(direct):
+    sim = stark_tpu_torch.Simulation(_settings("global_point", direct))
+    box0 = _box(sim)
+    constraint = sim.rigidbodies.add_constraint_global_point(box0, box0.get_translation())
+    box0.set_force([PERTURBATION, 0, 0])
+    assert sim.run()
+    C, f = constraint.get_violation_in_m_and_force()
+    assert abs(C) < constraint.get_tolerance_in_m()
+    assert abs(f - PERTURBATION) / PERTURBATION < 1e-3
+    return sim
+
+
+def _global_direction(direct):
+    sim = stark_tpu_torch.Simulation(_settings("global_direction", direct))
+    box0 = _box(sim)
+    constraint = sim.rigidbodies.add_constraint_global_direction(box0, [0.0, 0.0, 1.0])
+    box0.set_torque([PERTURBATION, 0, 0])
+    assert sim.run()
+    C, t = constraint.get_violation_in_deg_and_torque()
+    assert abs(C) < constraint.get_tolerance_in_deg()
+    assert abs(t - PERTURBATION) / PERTURBATION < 1e-3
+    return sim
+
+
+def test_inertia():
+    """Port of tests/test_rb_constraints.py::test_inertia."""
+    _inertia(direct=False)
 
 
 def test_global_point():
     """Port of tests/test_rb_constraints.py::test_global_point."""
-    sim = stark_tpu_torch.Simulation(_settings("global_point"))
-    box0 = _box(sim)
-    constraint = sim.rigidbodies.add_constraint_global_point(box0, box0.get_translation())
-    box0.set_force([PERTURBATION, 0, 0])
-    sim.run()
-    C, f = constraint.get_violation_in_m_and_force()
-    assert abs(C) < constraint.get_tolerance_in_m()
-    assert abs(f - PERTURBATION) / PERTURBATION < 1e-3
+    _global_point(direct=False)
 
 
 def test_global_direction():
     """Port of tests/test_rb_constraints.py::test_global_direction."""
-    sim = stark_tpu_torch.Simulation(_settings("global_direction"))
-    box0 = _box(sim)
-    constraint = sim.rigidbodies.add_constraint_global_direction(box0, [0.0, 0.0, 1.0])
-    box0.set_torque([PERTURBATION, 0, 0])
-    sim.run()
-    C, t = constraint.get_violation_in_deg_and_torque()
-    assert abs(C) < constraint.get_tolerance_in_deg()
-    assert abs(t - PERTURBATION) / PERTURBATION < 1e-3
+    _global_direction(direct=False)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("scene", [_inertia, _global_point, _global_direction],
+                         ids=["inertia", "global_point", "global_direction"])
+def test_rb_constraints_on_direct_llt(scene):
+    """The three scenes as tests/test_rb_constraints.py runs them: DirectLLT
+    (the staged solver), 1500 steps of 2 ms, the same force balances."""
+    sim = scene(direct=True)
+    assert not sim.stark.newton._fused_eligible()
+    assert abs(sim.get_time() - 3.0) < 0.01
 
 
 def test_unported_rigid_paths_raise():
