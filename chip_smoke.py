@@ -75,7 +75,18 @@ Phases (every failure propagates; nothing is caught):
      contact refresh against the engine's twin path; kernel A's direct site
      on phase 15's DirectLLT input; time them and the Cholesky (phases 14
      and 16 run in a child process, `chip_smoke.py --staged OUT`, started
-     with phase 9's).
+     with phase 9's);
+ 17. kernels M-P, the element energies, gradients and Hessians: phases 4,
+     7, 12 and 14 assert that every family of their path launched its
+     kernel (e, g, H and the value-only form) and none ran torch.func on
+     the card; at phase 4's, 7's and 12's states (the last in phase 12's
+     process) each family's kernel is held against its torch.func twin on
+     the card, f64 within 1e-10 of each element's largest entry and f32 by
+     tools/egh_cases.f32_ratio, the value-only e bit for bit the egh e, and
+     energy_grad_hess's E bit for bit energy()'s in f32 and f64; the
+     families no scene runs on seeded tables; then, on the idle card,
+     each family's kernel and twin are timed, and energy_grad_hess and
+     energy() whole with the kernels and with the twins.
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -400,7 +411,7 @@ def run_steps(sim, n_steps):
             raise AssertionError("a time step failed")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(build.launches)
+    launches = dict(build.launches, **func_launches())
     newton = int(logger.get_stats("newton_iterations").total)
     cg = int(logger.get_stats("cg_iterations").total)
     syncs = int(logger.get_stats("host_syncs").total)
@@ -678,7 +689,7 @@ def run_spinning_box(sim, spin_steps):
         fric.append(nm.friction_rows())
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    launches = dict(build.launches)
+    launches = dict(build.launches, **func_launches())
     newton = int(logger.get_stats("newton_iterations").total)
     cg = int(logger.get_stats("cg_iterations").total)
     syncs = int(logger.get_stats("host_syncs").total)
@@ -1363,7 +1374,7 @@ def scale64_run(out_json: str) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     track()
-    launches = dict(build.launches)
+    launches = dict(build.launches, **func_launches())
     launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
     newton = int(lg.get_stats("newton_iterations").total) - warm_newton
     fields = {
@@ -1392,12 +1403,15 @@ def scale64_run(out_json: str) -> int:
     assert not intersects_now(sim), "the final state intersects"
     assert_launched(launches, SCALE_KERNELS + CONTACT_KERNELS + JACOBI_KERNELS,
                     "the 64x64 scale point")
+    assert_egh_path(sim, launches, BOX_FAMILIES, "the 64x64 scale point")
     print("-- phase 13", flush=True)
     torch.set_num_threads(4)     # the twins' CPU runs
     results, info = scale64_checks(sim)
+    print("-- phase 17 (the scale point's state)", flush=True)
+    egh12 = egh_checks(sim, BOX_FAMILIES, "phase 12", 12)
     with open(out_json, "w") as f:
         json.dump({"fields": fields, "launches": launches, "results": results,
-                   "info": info, "seconds": time.perf_counter() - t0}, f)
+                   "info": info, "egh": egh12, "seconds": time.perf_counter() - t0}, f)
     return 0
 
 
@@ -1829,6 +1843,8 @@ def staged_run(out_json: str, go_file: str = None) -> int:
     assert fields["friction_rows_last"] > 0, "no friction rows"
     assert not intersects_now(sim), "the final state intersects"
     assert_launched(launches, STAGED_KERNELS, "the staged path")
+    assert_egh_path(sim, launches, BOX_FAMILIES, "the staged path",
+                    optional=[n for n in BOX_FAMILIES if n.startswith("contact_")])
     if go_file:
         t_wait = time.perf_counter()
         while not os.path.exists(go_file):
@@ -1880,6 +1896,328 @@ def et_ball_containment(eng, Vs, Vr, slack):
            "cpu_missing_from_card_port_pad": len(cpu_jax - card_port)}
     log("  w_et (oracle ball pairs) card vs CPU glue: " + json.dumps(out))
     assert cpu_jax <= card_port, "the card's ball list misses a pair of the CPU's"
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: kernels M-P (element energies, gradients, Hessians) against
+# their twins
+# ---------------------------------------------------------------------------
+# the families of the main path: bench.py's spinning box (12) and the
+# hanging cloth's prescribed positions
+CLOTH_FAMILIES = ("EnergyLumpedInertia", "EnergyTriangleStrain", "EnergyBendingFlat",
+                  "EnergyPrescribedPositions")
+BOX_FAMILIES = ("EnergyLumpedInertia", "EnergyTriangleStrain", "EnergyBendingFlat",
+                "EnergyRigidBodyInertia_Linear", "EnergyRigidBodyInertia_Angular",
+                "rb_constraint_global_points", "rb_constraint_global_directions",
+                "contact_pt_dd", "contact_pt_dr", "contact_pt_rd", "contact_ee_dd",
+                "contact_ee_dr")
+# the kernel families no scene of the smoke runs: seeded tables
+# (tools/egh_cases.py)
+OFF_PATH_FAMILIES = ("EnergyTriangleStrain_ElasticityOnly", "contact_pt_rr",
+                     "contact_ee_rr")
+_ENERGIES = "stark_tpu/models/deformables/energies.py:"
+_CONTACT = "stark_tpu/models/interactions/contact_energies.py:"
+EGH_REPLACES = {
+    "EnergyTriangleStrain": _ENERGIES + "468",
+    "EnergyLumpedInertia": _ENERGIES + "88",
+    "EnergyPrescribedPositions": _ENERGIES + "214",
+    "EnergyBendingFlat": _ENERGIES + "596",
+    "EnergyRigidBodyInertia_Linear": "stark_tpu/models/rigidbodies/inertia.py:43",
+    "EnergyRigidBodyInertia_Angular": "stark_tpu/models/rigidbodies/inertia.py:57",
+    "rb_constraint_global_points": "stark_tpu/models/rigidbodies/constraints.py:216",
+    "rb_constraint_global_directions": "stark_tpu/models/rigidbodies/constraints.py:224",
+    "contact_pt_dd": _CONTACT + "161", "contact_pt_dr": _CONTACT + "165",
+    "contact_pt_rd": _CONTACT + "170", "contact_ee_dd": _CONTACT + "180",
+    "contact_ee_dr": _CONTACT + "186",
+}
+
+
+def func_launches():
+    """The evaluations on CUDA tensors that went through torch.func, by
+    family, beside the kernel counts of a run."""
+    from stark_tpu_torch.ops import build
+
+    return {f"torch_func[{k}]": v for k, v in build.func_on_card.items()}
+
+
+def assert_egh_path(sim, launches, names, where: str, optional=()):
+    """Every family named launched its kernel (e, g, H and the value-only
+    form) in the run, and none ran torch.func on the card. A family in
+    `optional` may have had no rows in the run (the staged solve reads the
+    live contact rows only), but then none of `optional` may be missing
+    together."""
+    fams = {f.name: f for f in sim.stark.global_potential.families}
+    empty = []
+    for n in names:
+        site = fams[n].kernel.site
+        assert launches.get(f"torch_func[{n}]", 0) == 0, \
+            f"{n} ran torch.func on the card on {where}"
+        if n in optional and launches.get(site, 0) == 0:
+            empty.append(n)
+            continue
+        for s in (site, site[:-1] + ":e]"):
+            assert launches.get(s, 0) > 0, f"{s} never launched on {where}"
+    assert not optional or len(empty) < len(optional), f"no contact rows on {where}"
+    on_card = {k: v for k, v in launches.items() if k.startswith("torch_func[")}
+    log(f"  {where}: every kernel family launched{' but ' + str(empty) + ' (no rows)' if empty else ''}; "
+        f"torch.func on the card: {on_card or 'none'}")
+
+
+def egh_state(sim, seed: int):
+    """The tables one energy evaluation of the solve sees at the current
+    state (the static tables, and the contact tables the pair shell builds
+    there) and a seeded random iterate u ~ N(0, 0.01) m/s:
+    (evaluators, data, glob, u, static topology)."""
+    nm = sim.stark.newton
+    ev = nm._ev
+    static = sim._get_static_data()
+    data = dict(static)
+    eng = sim.interactions.contact.engine()
+    if eng is not None:
+        eng, _nm, _u0, Vs, Vr = contact_state(sim)
+        f = lambda x: torch.as_tensor(x, dtype=sim.stark.dtype, device=DEVICE)
+        th = eng.th_vec()
+        mc, _ic, _c = eng.broad_fn(Vs, Vr, th, f(0.016), f(0.002))
+        tables, _c = eng.pairs_fn(Vs, Vr, th, mc, f(0.002))
+        data.update(tables)
+    rng = np.random.default_rng(seed)
+    u = torch.as_tensor(rng.normal(0.0, 0.01, (nm.n_blocks, 3)), dtype=sim.stark.dtype,
+                        device=DEVICE)
+    return ev, data, sim._get_glob(), u, ev.topology(static, dense=False)
+
+
+def _cast(x, dtype):
+    if isinstance(x, dict):
+        return {k: _cast(v, dtype) for k, v in x.items()}
+    return x.to(dtype) if x.is_floating_point() else x
+
+
+def _f64_err(out, ref, part) -> float:
+    from stark_tpu_torch.tools.egh_cases import f64_err
+
+    return f64_err(out.cpu().numpy(), ref.cpu().numpy(), part)
+
+
+def hold_egh(fam, u, conn, rows, glob, what: str) -> dict:
+    """One family's kernel against its twin on the card: f64 within 1e-10
+    by tools/egh_cases.f64_err (g and H: of each element's largest entry),
+    f32 within tools/egh_cases.f32_ratio (element by element; the rows held
+    to the float32 floor are counted), the value-only e bit for bit the
+    derivative form's in both."""
+    from stark_tpu_torch.ops import egh
+    from stark_tpu_torch.tools.egh_cases import f32_ratio, f64_spread
+
+    u64, rows64, glob64 = u.double(), _cast(rows, torch.float64), _cast(glob, torch.float64)
+    k64 = fam.kernel(u64, conn, rows64, glob64, True)
+    v64 = fam.kernel(u64, conn, rows64, glob64, False)
+    t64 = egh.plain(fam.energy_fn, u64, conn, rows64, glob64)
+    spread = f64_spread(fam.energy_fn, u64, conn, rows64, glob64)
+    u32, rows32, glob32 = u.float(), _cast(rows, torch.float32), _cast(glob, torch.float32)
+    k32 = fam.kernel(u32, conn, rows32, glob32, True)
+    v32 = fam.kernel(u32, conn, rows32, glob32, False)
+    t32 = egh.plain(fam.energy_fn, u32, conn, rows32, glob32)
+    torch.cuda.synchronize()
+    assert torch.equal(v64, k64[0]) and torch.equal(v32, k32[0]), \
+        f"{fam.name} ({what}): the value-only e is not the egh e bit for bit"
+    err64 = max(_f64_err(k, t, part) for part, k, t in zip("egH", k64, t64))
+    parts32, wide = zip(*[f32_ratio(k, t, r, part, s)
+                          for part, k, t, r, s in zip("egH", k32, t32, t64, spread)])
+    ratio32 = max(parts32)
+    abs32 = max(float((k.double() - t.double()).abs().max()) if k.numel() else 0.0
+                for k, t in zip(k32, t32))
+    rows_n, live = conn.shape[0], int((rows["active"] > 0.5).sum())
+    ok = err64 <= 1e-10 and ratio32 <= 1.0
+    log(f"  {fam.kernel.site:<36} {what:<9} rows={rows_n:<6} live={live:<6} "
+        f"f64 rel err={err64:.2e}  f32 err/tol={ratio32:.3f} "
+        f"(e {parts32[0]:.2f} g {parts32[1]:.2f} H {parts32[2]:.2f}; rows by the "
+        f"floor e {wide[0]} g {wide[1]} H {wide[2]})  {'ok' if ok else 'FAIL'}")
+    return {"rows": rows_n, "live_rows": live, "f64_rel_err": err64,
+            "f32_err_over_tol": ratio32, "f32_rows_by_floor": list(wide),
+            "max_abs_err": abs32, "ok": ok}
+
+
+def egh_checks(sim, names, what: str, seed: int) -> dict:
+    """Phase 17's checks at a scene's state: each family of `names`
+    (float32 state, cast to float64) against its twin, and the whole
+    energy_grad_hess E bit for bit energy()'s E in both dtypes."""
+    ev, data, glob, u, topo = egh_state(sim, seed)
+    out = {}
+    for name in names:
+        fd = data[name]
+        out[name] = hold_egh(ev.fam_by_name[name], u, fd["conn"], fd["rows"], glob, what)
+    bad = [n for n, r in out.items() if not r["ok"]]
+    assert not bad, f"{what}: {bad} disagree with their twins"
+    for dtype in (torch.float32, torch.float64):
+        d, g, uu = _cast(data, dtype), _cast(glob, dtype), u.to(dtype)
+        E_egh = ev.energy_grad_hess(uu, d, g, topo, ev.egh_csr(d))[0]
+        E_en = ev.energy(uu, d, g)
+        assert torch.equal(E_egh, E_en), f"{what} {dtype}: egh's E {float(E_egh)!r} " \
+            f"is not energy()'s {float(E_en)!r}"
+        log(f"  {what} {str(dtype):<13} egh E == energy() E bit for bit: {float(E_en)!r}")
+    return out
+
+
+def off_path_checks() -> dict:
+    """The kernel families no scene of the smoke runs, on seeded tables
+    (tools/egh_cases.py, both barriers for the contact ones)."""
+    from stark_tpu_torch.tools import egh_cases as ec
+
+    out = {}
+    for name in OFF_PATH_FAMILIES:
+        for barrier in (("Cubic", "Log") if name.startswith("contact_") else ("Cubic",)):
+            case = ec.make_case(name, sum(map(ord, name + barrier)))
+            glob, u, conn, rows = ec.to_torch(*case, device=DEVICE)
+            fam = ec.port_families(barrier)[name]
+            out[f"{name}[{barrier}]"] = hold_egh(fam, u, conn, rows, glob, "seeded")
+    bad = [n for n, r in out.items() if not r["ok"]]
+    assert not bad, f"seeded tables: {bad} disagree with their twins"
+    return out
+
+
+# the operations one live row of a family needs, counted from the energy's
+# formula (csrc/egh_*.cu, the port's energies): (the energy's value, the
+# distinct values of its Hessian where they are fewer than d(d+1)/2: c I3
+# blocks, the 4x4 Bergou product, a symmetric 3x3). A rigid point adds its
+# rotation (~69: the quaternion step, its normalisation, R) and ~18 per
+# local point; a soft point its x0 + dt u (6). To these the bound adds one
+# multiply-add per gradient entry and per distinct Hessian value, the least
+# any form of e, g and H must do: a lower count than any kernel's.
+EGH_OPS = {
+    "lumped": (56, 1), "prescribed": (16, 1), "shells_flat": (53, 10),
+    "rb_linear": (35, 1), "rb_angular": (73, 6),
+    "global_points": (103, None), "global_directions": (94, None),
+    # F, C = F^T F, log J, the Neo-Hookean terms, the strain rate against
+    # F0, the 2x2 eigenvalues and cubic limit, inflation
+    "strain": (180, None), "strain_eo": (104, None),
+    # 4 points, the region test (~40), the region's distance (~17), the
+    # barrier (~8); EE adds the mollifier (~34)
+    "pt_dd": (98, None), "pt_dr": (209, None), "pt_rd": (185, None),
+    "pt_rr": (296, None), "ee_dd": (132, None), "ee_dr": (231, None),
+    "ee_rr": (330, None),
+}
+
+
+def egh_bound(fam, u, conn, rows, glob, outs) -> tuple:
+    """(bytes, operations) the derivative form of a family's kernel must
+    move and do on these rows: e, g and H written once for every row and
+    `active` read once; on the live rows only, the row tables the entry
+    reads (its `spec`) and conn read once each, the distinct DOF blocks of u
+    they touch read once, and of each global the rows of those blocks (all
+    of a global of at most 16 values); EGH_OPS's count per live row."""
+    live = rows["active"] > 0.5
+    n_live = int(live.sum())
+    el = u.element_size()
+    a = conn.shape[1]
+    d = 3 * a
+    blocks = int(torch.unique(conn[live]).numel())
+    row_bytes = lambda t: (t[0].numel() if t.dim() else 1) * (
+        el if t.is_floating_point() else 8)
+    b = nbytes(*outs) + conn.shape[0] * el + n_live * 8 * a + blocks * 3 * el
+    for spec in fam.kernel.spec:
+        if spec is None:
+            continue
+        src, key = spec
+        if src == "r":
+            b += n_live * row_bytes(rows[key])
+        elif key in glob:
+            t = glob[key]
+            b += t.numel() * el if t.numel() <= 16 else min(t.shape[0], blocks) * row_bytes(t)
+    v_ops, h = EGH_OPS[fam.kernel.family]
+    h = d * (d + 1) // 2 if h is None else h
+    return b, n_live * (v_ops + 2 * d + 2 * h)
+
+
+def egh_timings(sim, names, seed: int, launches: dict) -> dict:
+    """Phase 17's times at a scene's state, on the idle card (float32): per
+    family the kernel (e, g, H and value-only forms; 20 launches in a CUDA
+    graph, replayed 5 times) against its torch.func twin (host launches),
+    the bound from this run's rows, and the whole energy_grad_hess and
+    energy() with the kernels and with the twins."""
+    from stark_tpu_torch.ops import egh
+
+    ev, data, glob, u, topo = egh_state(sim, seed)
+    csr = ev.egh_csr(data)
+    out = {}
+    for name in names:
+        fam = ev.fam_by_name[name]
+        conn, rows = data[name]["conn"], data[name]["rows"]
+        e, g, H = fam.kernel(u, conn, rows, glob, True)
+        E = conn.shape[0]
+        n_bytes, flops = egh_bound(fam, u, conn, rows, glob, (e, g, H))
+        bnd = bound_ms(n_bytes, flops, u.dtype)
+        site = fam.kernel.site
+        out[name] = dict(
+            site=site, launches=launches.get(site, 0),
+            launches_e=launches.get(site[:-1] + ":e]", 0),
+            ms=graph_ms(lambda: fam.kernel(u, conn, rows, glob, True)),
+            ms_e=graph_ms(lambda: fam.kernel(u, conn, rows, glob, False)),
+            plain_ms=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob),
+                               iters=5, warmup=2),
+            plain_ms_e=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob,
+                                                   False), iters=5, warmup=2),
+            bound_ms=bnd[0], bound_by=bnd[1], flops=flops, bytes=n_bytes,
+            shape=f"{E} rows ({int((rows['active'] > 0.5).sum())} live), "
+                  f"H {tuple(H.shape)}")
+        r = out[name]
+        log(f"  {site:<36} {r['ms']:.4f} ms (e only {r['ms_e']:.4f}) twin "
+            f"{r['plain_ms']:.3f} ms (e only {r['plain_ms_e']:.3f}); bound "
+            f"{r['bound_ms']:.2e} ms ({r['bound_by']}); {r['shape']}")
+    whole = {"egh_ms": events_ms(lambda: ev.energy_grad_hess(u, data, glob, topo, csr),
+                                 iters=10),
+             "energy_ms": events_ms(lambda: ev.energy(u, data, glob), iters=10)}
+    kept = {n: f.kernel for n, f in ev.fam_by_name.items() if f.kernel is not None}
+    try:
+        for n in kept:
+            ev.fam_by_name[n].kernel = None
+        whole["egh_twins_ms"] = events_ms(
+            lambda: ev.energy_grad_hess(u, data, glob, topo, csr), iters=3, warmup=1)
+        whole["energy_twins_ms"] = events_ms(lambda: ev.energy(u, data, glob), iters=3,
+                                             warmup=1)
+    finally:
+        for n, k in kept.items():
+            ev.fam_by_name[n].kernel = k
+    log(f"  whole: energy_grad_hess {whole['egh_ms']:.3f} ms with the kernels, "
+        f"{whole['egh_twins_ms']:.3f} ms with the twins; energy() "
+        f"{whole['energy_ms']:.3f} ms, {whole['energy_twins_ms']:.3f} ms")
+    return {"families": out, "whole": whole}
+
+
+# the mangled name of each family's float32 derivative kernel
+_SPILL_KEYS = {"strain": "9FamStrainILb1EEfLb1E", "lumped": "9FamLumpedfLb1E",
+               "prescribed": "13FamPrescribedfLb1E", "shells_flat": "13FamShellsFlatfLb1E",
+               "rb_linear": "11FamRbLinearfLb1E", "rb_angular": "12FamRbAngularfLb1E",
+               "global_points": "15FamGlobalPointsfLb1E",
+               "global_directions": "19FamGlobalDirectionsfLb1E",
+               "pt_dd": "ILb0ELb0ELb0EEfLb1E", "pt_dr": "ILb0ELb0ELb1EEfLb1E",
+               "pt_rd": "ILb0ELb1ELb0EEfLb1E", "ee_dd": "ILb1ELb0ELb0EEfLb1E",
+               "ee_dr": "ILb1ELb1ELb0EEfLb1E"}
+
+
+def spill_of(spills: dict, site: str):
+    """The spill stores of a site's float32 derivative kernel (and, for
+    N and O, of the shared point-space function it calls), or None."""
+    family = site.split("[")[1][:-1]
+    out = [v for k, v in spills.items() if _SPILL_KEYS[family] in k]
+    if site.startswith("egh_contact"):
+        kind = "contact_point_eghIfLb%dE" % family.startswith("ee")
+        out += [v for k, v in spills.items() if kind in k]
+    return sum(out) if out else None
+
+
+def ptxas_spills(ptxas: dict) -> dict:
+    """Spill stores (bytes) of each egh kernel and function in the ptxas
+    report: {symbol: spill stores}."""
+    out = {}
+    for src, text in ptxas.items():
+        if not src.startswith("egh_"):
+            continue
+        name = None
+        for line in text.splitlines():
+            if "Compiling entry function" in line or "Function properties for" in line:
+                name = line.split("'")[1] if "'" in line else line.split()[-1]
+            elif name and "spill stores" in line:
+                out[name] = int(line.split("bytes spill stores")[0].split(",")[-1])
     return out
 
 
@@ -2037,6 +2375,7 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     for k in ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket",
               "pd_project", "block3_inverse", "block3_apply"):
         assert launches64.get(k, 0) > 0, f"{k} never launched on the main path"
+    assert_egh_path(sim64, launches64, CLOTH_FAMILIES, "the 64x64 cloth")
 
     # ---- 5: the dense Newton-Schulz branch ----
     log("phase 5: 32x32 hanging cloth, float32, cuda (dense preconditioner)")
@@ -2082,6 +2421,7 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     assert fields["live_pairs_last"] > 0, "no live contact pairs"
     assert not intersects_now(sbc), "the final state intersects"
     assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS, "the contact path")
+    assert_egh_path(sbc, launches_sbc, BOX_FAMILIES, "the contact path")
 
     # ---- 8 ----
     log("phase 8: kernels E-H (and C on the live pool) against their twins")
@@ -2144,6 +2484,21 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     launches_staged = r14["launches"]
     results.update(r14["results"])
 
+    # ---- 17: kernels M-P, on the idle card (every child is done)
+    log("phase 17: kernels M-P against their twins (f64 and f32) at phase 4's, 7's "
+        "and 12's states, and on seeded tables for the families no scene runs")
+    r17 = {"phase4": egh_checks(sim64, CLOTH_FAMILIES, "phase 4", 4),
+           "phase7": egh_checks(sbc, BOX_FAMILIES, "phase 7", 7),
+           "phase12": r12["egh"], "off_path": off_path_checks()}
+    for name, c in r12["egh"].items():
+        log(f"  {name:<36} phase 12  rows={c['rows']:<6} live={c['live_rows']:<6} "
+            f"f64 rel err={c['f64_rel_err']:.2e}  f32 err/tol={c['f32_err_over_tol']:.3f}")
+    log("phase 17 (times): the 32x32 spinning box at phase 7's end, float32")
+    t7 = egh_timings(sbc, BOX_FAMILIES, 7, launches_sbc)
+    log("phase 17 (times): the 64x64 cloth at phase 4's end, float32")
+    t4 = egh_timings(sim64, CLOTH_FAMILIES, 4, launches64)
+    spills = ptxas_spills(build.build_info["ptxas"])
+
     # ---- 11 ----
     kernels = []
     for name, source, replaces in KERNELS:
@@ -2168,6 +2523,20 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         **({"left_out": r["left_out"]} if "left_out" in r else {})})
+    for name in BOX_FAMILIES + ("EnergyPrescribedPositions",):
+        cloth = name == "EnergyPrescribedPositions"
+        t = (t4 if cloth else t7)["families"][name]
+        c = r17["phase4" if cloth else "phase7"][name]
+        kind = t["site"].split("[")[0]
+        kernels.append({"name": t["site"], "route": "cuda",
+                        "source": f"stark_tpu_torch/csrc/{kind}.cu",
+                        "replaces": EGH_REPLACES[name], "launches": t["launches"],
+                        "max_abs_err": c["max_abs_err"], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_ms": None,
+                        "shape": t["shape"], "launches_value_only": t["launches_e"],
+                        "ms_value_only": t["ms_e"], "plain_ms_value_only": t["plain_ms_e"],
+                        "spill_stores": spill_of(spills, t["site"])})
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
@@ -2179,7 +2548,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                "staged_configurations": runs15, "direct_llt_phase16": info16,
                "spinning_box_launches": launches_sbc,
                "friction_launches": launches_fric,
-               "golden16_f64_max_dev": worst,
+               "golden16_f64_max_dev": worst, "egh_phase17": r17,
+               "egh_times": {"spinning_box32": t7, "cloth64": t4}, "egh_spills": spills,
+               "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
                "build_s": build.build_info["seconds"],
                "total_s": time.perf_counter() - t_start}

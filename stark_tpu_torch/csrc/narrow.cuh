@@ -24,11 +24,11 @@
 
 // the dtype's default relative parallel cutoff (narrow_phase._parallel_tol)
 template <typename T>
-__device__ __forceinline__ T default_parallel_tol();
+STK_HD T default_parallel_tol();
 template <>
-__device__ __forceinline__ float default_parallel_tol<float>() { return 1e-4f; }
+STK_HD float default_parallel_tol<float>() { return 1e-4f; }
 template <>
-__device__ __forceinline__ double default_parallel_tol<double>() { return 1e-20; }
+STK_HD double default_parallel_tol<double>() { return 1e-20; }
 
 template <typename T>
 struct V3 {
@@ -36,37 +36,37 @@ struct V3 {
 };
 
 template <typename T>
-__device__ __forceinline__ V3<T> ld3(const T* p) {
+STK_HD V3<T> ld3(const T* p) {
   return V3<T>{p[0], p[1], p[2]};
 }
 template <typename T>
-__device__ __forceinline__ V3<T> sub(V3<T> a, V3<T> b) {
+STK_HD V3<T> sub(V3<T> a, V3<T> b) {
   return V3<T>{rn_sub(a.x, b.x), rn_sub(a.y, b.y), rn_sub(a.z, b.z)};
 }
 template <typename T>
-__device__ __forceinline__ T dot(V3<T> a, V3<T> b) {
+STK_HD T dot(V3<T> a, V3<T> b) {
   return rn_add(rn_add(rn_mul(a.x, b.x), rn_mul(a.y, b.y)), rn_mul(a.z, b.z));
 }
 template <typename T>
-__device__ __forceinline__ V3<T> cross(V3<T> a, V3<T> b) {
+STK_HD V3<T> cross(V3<T> a, V3<T> b) {
   return V3<T>{rn_fma(a.y, b.z, -rn_mul(a.z, b.y)),
                rn_fma(a.z, b.x, -rn_mul(a.x, b.z)),
                rn_fma(a.x, b.y, -rn_mul(a.y, b.x))};
 }
 
 template <typename T>
-__device__ __forceinline__ T guarded_div(T num, T den, T floor) {
+STK_HD T guarded_div(T num, T den, T floor) {
   return den > floor ? num / den : T(0);
 }
 
 template <typename T>
-__device__ __forceinline__ T sq_point_point(V3<T> p, V3<T> q) {
+STK_HD T sq_point_point(V3<T> p, V3<T> q) {
   V3<T> d = sub(p, q);
   return dot(d, d);
 }
 
 template <typename T>
-__device__ __forceinline__ T sq_point_line(V3<T> p, V3<T> a, V3<T> b) {
+STK_HD T sq_point_line(V3<T> p, V3<T> a, V3<T> b) {
   V3<T> ab = sub(b, a);
   V3<T> ap = sub(p, a);
   T e = dot(ap, ab);
@@ -74,7 +74,7 @@ __device__ __forceinline__ T sq_point_line(V3<T> p, V3<T> a, V3<T> b) {
 }
 
 template <typename T>
-__device__ __forceinline__ T sq_point_plane(V3<T> p, V3<T> a, V3<T> b, V3<T> c) {
+STK_HD T sq_point_plane(V3<T> p, V3<T> a, V3<T> b, V3<T> c) {
   V3<T> n = cross(sub(a, c), sub(b, c));
   T d = dot(sub(p, a), n);
   return guarded_div(rn_mul(d, d), dot(n, n), T(STK_TINY));
@@ -82,7 +82,7 @@ __device__ __forceinline__ T sq_point_plane(V3<T> p, V3<T> a, V3<T> b, V3<T> c) 
 
 // the guard floor uses the dtype default, whatever cutoff the classifier got
 template <typename T>
-__device__ __forceinline__ T sq_line_line(V3<T> a, V3<T> b, V3<T> p, V3<T> q) {
+STK_HD T sq_line_line(V3<T> a, V3<T> b, V3<T> p, V3<T> q) {
   V3<T> u = sub(b, a);
   V3<T> v = sub(q, p);
   V3<T> n = cross(u, v);
@@ -93,7 +93,7 @@ __device__ __forceinline__ T sq_line_line(V3<T> a, V3<T> b, V3<T> p, V3<T> q) {
 }
 
 template <typename T>
-__device__ __forceinline__ void edge_param(V3<T> p, V3<T> e0, V3<T> e1, V3<T> n,
+STK_HD void edge_param(V3<T> p, V3<T> e0, V3<T> e1, V3<T> n,
                                            T* s, T* o) {
   V3<T> e = sub(e1, e0);
   T ee = dot(e, e);
@@ -104,7 +104,7 @@ __device__ __forceinline__ void edge_param(V3<T> p, V3<T> e0, V3<T> e1, V3<T> n,
 // PT region codes: 0,1,2 vertices t0/t1/t2; 3,4,5 edges (t0t1),(t1t2),(t2t0);
 // 6 face.
 template <typename T>
-__device__ __forceinline__ int point_triangle_region(V3<T> p, V3<T> t0, V3<T> t1,
+STK_HD int point_triangle_region(V3<T> p, V3<T> t0, V3<T> t1,
                                                      V3<T> t2) {
   V3<T> n = cross(sub(t1, t0), sub(t2, t0));
   T s0, o0, s1, o1, s2, o2;
@@ -121,7 +121,7 @@ __device__ __forceinline__ int point_triangle_region(V3<T> p, V3<T> t0, V3<T> t1
 }
 
 template <typename T>
-__device__ __forceinline__ T point_triangle_distance(V3<T> p, V3<T> t0, V3<T> t1,
+STK_HD T point_triangle_distance(V3<T> p, V3<T> t0, V3<T> t1,
                                                      V3<T> t2) {
   T sq;
   switch (point_triangle_region(p, t0, t1, t2)) {
@@ -139,7 +139,7 @@ __device__ __forceinline__ T point_triangle_distance(V3<T> p, V3<T> t0, V3<T> t1
 // EE region codes (ipc bit layout): 0 EA0_EB0, 1 EA0_EB1, 2 EA1_EB0,
 // 3 EA1_EB1, 4 EA_EB0, 5 EA_EB1, 6 EA0_EB, 7 EA1_EB, 8 EA_EB.
 template <typename T>
-__device__ __forceinline__ int edge_edge_region(V3<T> ea0, V3<T> ea1, V3<T> eb0,
+STK_HD int edge_edge_region(V3<T> ea0, V3<T> ea1, V3<T> eb0,
                                                 V3<T> eb1, T ptol) {
   V3<T> u = sub(ea1, ea0);
   V3<T> v = sub(eb1, eb0);
@@ -180,7 +180,7 @@ __device__ __forceinline__ int edge_edge_region(V3<T> ea0, V3<T> ea1, V3<T> eb0,
 }
 
 template <typename T>
-__device__ __forceinline__ T edge_edge_distance(V3<T> ea0, V3<T> ea1, V3<T> eb0,
+STK_HD T edge_edge_distance(V3<T> ea0, V3<T> ea1, V3<T> eb0,
                                                 V3<T> eb1, T ptol) {
   T sq;
   switch (edge_edge_region(ea0, ea1, eb0, eb1, ptol)) {
@@ -199,7 +199,7 @@ __device__ __forceinline__ T edge_edge_distance(V3<T> ea0, V3<T> ea1, V3<T> eb0,
 
 // Moller-Trumbore, inclusive, with the relative parallel test.
 template <typename T>
-__device__ __forceinline__ bool segment_triangle_intersects(V3<T> p0, V3<T> p1,
+STK_HD bool segment_triangle_intersects(V3<T> p0, V3<T> p1,
                                                             V3<T> t0, V3<T> t1,
                                                             V3<T> t2, T ptol) {
   V3<T> d = sub(p1, p0);

@@ -3,8 +3,10 @@
 Port of `stark_tpu/models/deformables/energies.py` for the four families the
 cloth path registers: lumped inertia, prescribed positions, triangle strain
 and discrete shells (full and flat-rest). Each energy is a plain PyTorch
-per-element function `(u_e, row, glob) -> scalar`; `torch.func` derives its
-gradient and Hessian (solver/assembly.py). The host-side table builders
+per-element function `(u_e, row, glob) -> scalar`, the plain twin from
+which `torch.func` derives its gradient and Hessian (ops/egh.py); on the
+card kernels M (triangle strain) and P (the others but full shells)
+compute them. The host-side table builders
 (rest-pose precomputation) are numpy copies of the JAX package's, so both
 packages freeze identical element tables.
 
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from ... import maths
+from ...ops import egh
 from ...solver.potential import FamilyData, PotentialFamily
 from ..point_dynamics import PointSetHandler
 from ..types import FluentParams
@@ -64,6 +67,13 @@ class LumpedInertiaParams(FluentParams):
     quasistatic: bool = False
 
 
+# the tables kernel P's lumped entry reads (csrc/egh_inertia.cu), in its
+# order: ("r", key) a row table of _provider's, ("g", key) a global
+_LUMPED_READS = [("r", "node"), ("r", "lumped_volume"), ("r", "density"), ("r", "damping"),
+                 ("r", "is_quasistatic"), ("g", "x0"), ("g", "v0"), ("g", "pt_a"),
+                 ("g", "pt_f"), ("g", "gravity"), ("g", "dt")]
+
+
 class EnergyLumpedInertia:
     NAME = "EnergyLumpedInertia"
 
@@ -77,7 +87,9 @@ class EnergyLumpedInertia:
         self._nodes: list[int] = []
         self._groups: list[int] = []
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME, 1, self._energy, psd=True), self._provider)
+            PotentialFamily(self.NAME, 1, self._energy, psd=True,
+                            kernel=egh.kernel("egh_inertia", "lumped", _LUMPED_READS)),
+            self._provider)
 
     # energy: E_ext + (quasistatic ? 0 : E_inertia) (EnergyLumpedInertia.cpp:28-46)
     def _energy(self, u_e, row, glob):
@@ -188,6 +200,11 @@ class PrescribedPositionsHandler(_HandlerBase):
         return self
 
 
+# kernel P's prescribed entry (csrc/egh_inertia.cu)
+_PRESCRIBED_READS = [("r", "node"), ("r", "target"), ("r", "stiffness"), ("g", "x0"),
+                     ("g", "dt")]
+
+
 class EnergyPrescribedPositions:
     NAME = "EnergyPrescribedPositions"
 
@@ -202,7 +219,10 @@ class EnergyPrescribedPositions:
         self.rest_positions: list[np.ndarray] = []
         self.group_begin_end: list[tuple[int, int]] = []
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME, 1, self._energy, psd=True), self._provider)
+            PotentialFamily(self.NAME, 1, self._energy, psd=True,
+                            kernel=egh.kernel("egh_inertia", "prescribed",
+                                              _PRESCRIBED_READS)),
+            self._provider)
         stark.callbacks.newton.add_is_converged_state_valid(self._is_converged_state_valid)
 
     def _energy(self, u_e, row, glob):
@@ -313,6 +333,13 @@ class TriangleStrainParams(FluentParams):
     inflation: float = 0.0
 
 
+# kernel M's entries, full and elasticity-only (csrc/egh_strain.cu)
+_STRAIN_READS = [("r", "nodes"), ("r", "DXinv"), ("r", "rest_area"), ("r", "thickness"),
+                 ("r", "youngs_modulus"), ("r", "poissons_ratio"), ("r", "strain_damping"),
+                 ("r", "strain_limit"), ("r", "strain_limit_stiffness"), ("r", "inflation"),
+                 ("g", "x0"), ("g", "dt")]
+
+
 class EnergyTriangleStrain:
     NAME = "EnergyTriangleStrain"
     NAME_EO = "EnergyTriangleStrain_ElasticityOnly"
@@ -324,10 +351,12 @@ class EnergyTriangleStrain:
         self._tris = {self.NAME: [], self.NAME_EO: []}
         self._groups = {self.NAME: [], self.NAME_EO: []}
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME, 3, self._energy_full),
+            PotentialFamily(self.NAME, 3, self._energy_full,
+                            kernel=egh.kernel("egh_strain", "strain", _STRAIN_READS)),
             lambda: self._provider(self.NAME))
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME_EO, 3, self._energy_eo),
+            PotentialFamily(self.NAME_EO, 3, self._energy_eo,
+                            kernel=egh.kernel("egh_strain", "strain_eo", _STRAIN_READS)),
             lambda: self._provider(self.NAME_EO))
 
     @staticmethod
@@ -461,6 +490,11 @@ class DiscreteShellsParams(FluentParams):
     flat_rest_angle: bool = False
 
 
+# kernel P's flat-rest shells entry (csrc/egh_inertia.cu)
+_SHELLS_FLAT_READS = [("r", "nodes"), ("r", "bergou_K"), ("r", "bergou_coef"),
+                      ("r", "stiffness"), ("g", "x0"), ("g", "dt")]
+
+
 class EnergyDiscreteShells:
     NAME = "EnergyDiscreteShells"
     NAME_FLAT = "EnergyBendingFlat"
@@ -476,7 +510,9 @@ class EnergyDiscreteShells:
             PotentialFamily(self.NAME, 4, self._energy_full),
             lambda: self._provider(self.NAME))
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME_FLAT, 4, self._energy_flat, psd=True),
+            PotentialFamily(self.NAME_FLAT, 4, self._energy_flat, psd=True,
+                            kernel=egh.kernel("egh_inertia", "shells_flat",
+                                              _SHELLS_FLAT_READS)),
             lambda: self._provider(self.NAME_FLAT))
 
     def _energy_full(self, u_e, row, glob):

@@ -23,6 +23,7 @@ import torch
 
 from ... import maths
 from ...collision import narrow_phase as nph
+from ...ops import egh
 from ...solver.potential import PotentialFamily
 
 
@@ -117,6 +118,28 @@ def _ee_barrier(cfg, ea0, ea1, eb0, eb1, EA0, EA1, EB0, EB1, row, glob):
     return m * barrier(d, row["dhat"], glob["contact_k"], cfg["barrier"], active)
 
 
+# per contact stem: (side A's index table, its local positions, side B's
+# index table, its local positions); None where a side is soft
+_CONTACT_SIDES = {
+    "pt_dd": ("nodes", None, "nodes", None),
+    "pt_dr": ("node_p", None, "body_b", "t_loc"),
+    "pt_rd": ("body_a", "p_loc", "nodes_t", None),
+    "pt_rr": ("body_a", "p_loc", "body_b", "t_loc"),
+    "ee_dd": ("nodes", None, "nodes", None),
+    "ee_dr": ("body_a", "ea_loc", "nodes_b", None),
+    "ee_rr": ("body_a", "ea_loc", "body_b", "eb_loc"),
+}
+
+
+def _contact_reads(stem):
+    """The tables kernels N and O's entry for contact_<stem> reads
+    (csrc/egh_contact.cu), in its order: ("r", key) a row table, ("g", key)
+    a global, None a slot it leaves unread (X: edge-edge only)."""
+    return [("r", "dhat"), ("g", "contact_k"), ("g", "dt"), ("g", "x0"),
+            ("g", "X") if stem.startswith("ee") else None, ("g", "rb_t0"),
+            ("g", "rb_q0")] + [None if k is None else ("r", k) for k in _CONTACT_SIDES[stem]]
+
+
 def make_families(model):
     """The 14 contact and friction families closed over the model's barrier
     and friction types and parallel cutoff (read at call time, so they may
@@ -131,6 +154,12 @@ def make_families(model):
             return model.edge_edge_cross_norm_sq_cutoff
 
     cfg = _Cfg()
+
+    def scalars(dtype):
+        # kernels N and O's float arguments: Log barrier, EE parallel cutoff
+        ptol = cfg["parallel_tol"]
+        return (1.0 if cfg["barrier"] == "Log" else 0.0,
+                nph._parallel_tol(dtype) if ptol is None else ptol)
 
     def contact_pt_dd(u_e, row, glob):
         x = _soft_x1(glob, row["nodes"], u_e)
@@ -212,14 +241,20 @@ def make_families(model):
         vb = veb[0] + row["t"] * (veb[1] - veb[0])
         return _fric(row, glob, va, vb)
 
+    def contact(stem, arity, fn):
+        # on the card: kernel N (PT) or O (EE)
+        return PotentialFamily("contact_" + stem, arity, fn, dynamic=True,
+                               kernel=egh.kernel("egh_contact", stem, _contact_reads(stem),
+                                                 scalars))
+
     fams = [
-        PotentialFamily("contact_pt_dd", 4, contact_pt_dd, dynamic=True),
-        PotentialFamily("contact_pt_dr", 3, contact_pt_dr, dynamic=True),
-        PotentialFamily("contact_pt_rd", 5, contact_pt_rd, dynamic=True),
-        PotentialFamily("contact_pt_rr", 4, contact_pt_rr, dynamic=True),
-        PotentialFamily("contact_ee_dd", 4, contact_ee_dd, dynamic=True),
-        PotentialFamily("contact_ee_dr", 4, contact_ee_dr, dynamic=True),
-        PotentialFamily("contact_ee_rr", 4, contact_ee_rr, dynamic=True),
+        contact("pt_dd", 4, contact_pt_dd),
+        contact("pt_dr", 3, contact_pt_dr),
+        contact("pt_rd", 5, contact_pt_rd),
+        contact("pt_rr", 4, contact_pt_rr),
+        contact("ee_dd", 4, contact_ee_dd),
+        contact("ee_dr", 4, contact_ee_dr),
+        contact("ee_rr", 4, contact_ee_rr),
         PotentialFamily("friction_pt_dd", 4, friction_pt_dd, dynamic=True),
         PotentialFamily("friction_pt_dr", 3, friction_pt_dr, dynamic=True),
         PotentialFamily("friction_pt_rd", 5, friction_pt_rd, dynamic=True),

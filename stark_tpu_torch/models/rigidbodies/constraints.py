@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ... import maths
+from ...ops import egh
 from ...solver.potential import FamilyData, PotentialFamily
 
 _EPS = 100.0 * np.finfo(np.float64).eps
@@ -85,6 +86,15 @@ class _Container:
         self.model.stark.mark_dirty(self.name)
 
 
+# the tables kernel P's global_points and global_directions entries read
+# (csrc/egh_inertia.cu), in their order: ("r", key) a row table, ("g", key)
+# a global
+_GLOBAL_POINTS_READS = [("r", "a"), ("r", "loc"), ("r", "target"), ("r", "stiffness"),
+                        ("g", "rb_t0"), ("g", "rb_q0"), ("g", "dt")]
+_GLOBAL_DIRECTIONS_READS = [("r", "a"), ("r", "d_loc"), ("r", "target"), ("r", "stiffness"),
+                            ("g", "rb_q0"), ("g", "dt")]
+
+
 class EnergyRigidBodyConstraints:
     stiffness_hard_multiplier = 2.0
     stiffness_soft_multiplier = 1.05
@@ -103,10 +113,15 @@ class EnergyRigidBodyConstraints:
         self.global_directions = _Container(self, "rb_constraint_global_directions")
         gp = stark.global_potential
         gp.add_potential(PotentialFamily("rb_constraint_global_points", 2,
-                                         self._e_global_points),
+                                         self._e_global_points,
+                                         kernel=egh.kernel("egh_inertia", "global_points",
+                                                           _GLOBAL_POINTS_READS)),
                          lambda: self._prov(self.global_points, "aw"))
         gp.add_potential(PotentialFamily("rb_constraint_global_directions", 1,
-                                         self._e_global_directions),
+                                         self._e_global_directions,
+                                         kernel=egh.kernel("egh_inertia",
+                                                           "global_directions",
+                                                           _GLOBAL_DIRECTIONS_READS)),
                          lambda: self._prov(self.global_directions, "w"))
 
     def _prov(self, cont: _Container, kind: str):

@@ -12,12 +12,23 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ...ops import egh
 from ...solver.potential import FamilyData, PotentialFamily
 
 
 def _at(arr, idx):
     """arr[idx] for a 0-d index that stays a tensor under vmap."""
     return arr[idx[None]][0]
+
+
+# the tables kernel P's rb_linear and rb_angular entries read
+# (csrc/egh_inertia.cu), in their order: ("r", key) a row table, ("g", key)
+# a global
+_LINEAR_READS = [("r", "body"), ("r", "mass"), ("r", "damping"), ("r", "is_quasistatic"),
+                 ("g", "rb_v0"), ("g", "rb_a"), ("g", "rb_force"), ("g", "gravity"),
+                 ("g", "dt")]
+_ANGULAR_READS = [("r", "body"), ("r", "damping"), ("r", "is_quasistatic"), ("g", "rb_w0"),
+                  ("g", "rb_aa"), ("g", "rb_torque"), ("g", "rb_J0glob"), ("g", "dt")]
 
 
 class EnergyRigidBodyInertia:
@@ -36,10 +47,13 @@ class EnergyRigidBodyInertia:
 
         stark.callbacks.add_before_time_step(self._before_time_step)
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME_LIN, 1, self._energy_linear, psd=True),
+            PotentialFamily(self.NAME_LIN, 1, self._energy_linear, psd=True,
+                            kernel=egh.kernel("egh_inertia", "rb_linear", _LINEAR_READS)),
             self._provider_lin)
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME_ANG, 1, self._energy_angular, psd=True),
+            PotentialFamily(self.NAME_ANG, 1, self._energy_angular, psd=True,
+                            kernel=egh.kernel("egh_inertia", "rb_angular",
+                                              _ANGULAR_READS)),
             self._provider_ang)
 
     @property

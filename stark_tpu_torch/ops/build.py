@@ -11,10 +11,19 @@ stream travel as `c_void_p`.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc or a card.
 
+The element-derivative kernels M-P (`egh_*.cu`) build with `-fmad=false`:
+their value-only and derivative forms must round the energy alike, bit for
+bit. Their element math also builds as plain C++17 with g++
+(`host_library`, CPU only, for the tests and for the operation counts
+`chip_smoke.py` prices a bound with).
+
 `launches` counts kernel launches by kernel entry point (and, for the
-segmented reduce and the compaction, by call site). Each wrapper adds one right after its
-kernel launched and nowhere else, so a run can show that the main path went
-through the kernels.
+segmented reduce, the compaction and kernels M-P, by call site: M-P per
+family, `egh_strain[strain]` for e, g and H, `egh_strain[strain:e]` for the
+value only). Each wrapper adds one right after its kernel launched and
+nowhere else, so a run can show that the main path went through the
+kernels. `func_on_card` counts, by family, the evaluations on CUDA tensors
+that still go through torch.func (families with no kernel yet).
 """
 from __future__ import annotations
 
@@ -36,11 +45,23 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# sources whose value-only and derivative forms must round alike
+NO_FMA_PREFIX = "egh_"
+NO_FMA_FLAGS = ["-fmad=false"]
+# sources compiled as several objects, one nvcc process each, all started
+# with the others: egh_contact.cu's 14 dual kernels took 205 s as one
+# process; per kind (PT, EE) and dtype each part builds a quarter of them
+PARTS = {"egh_contact.cu": [["-DSTK_EGH_PART=%d" % k, "-DSTK_EGH_ONLY_%s" % d]
+                            for k in (0, 1) for d in ("F32", "F64")]}
+HOST_FLAGS = ["-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+              "-x", "c++"]
 
 launches: collections.Counter = collections.Counter()
+func_on_card: collections.Counter = collections.Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_host_lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 
 _P = ctypes.c_void_p
@@ -76,6 +97,12 @@ _SIGNATURES = {
     "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
+# kernels M-P: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
+EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
+                "rb_linear", "rb_angular", "global_points", "global_directions",
+                "pt_dd", "pt_dr", "pt_rd", "pt_rr", "ee_dd", "ee_dr", "ee_rr")
+_EGH_ARGS = [_P, _P, _L, _P, _P, _P, _P]
+_SIGNATURES.update({"stk_egh_" + f: _EGH_ARGS for f in EGH_FAMILIES})
 # entry points without a floating-point operand: one symbol, no suffix
 _UNTYPED = {
     "stk_compact": [_P, _L, _I, _P, _P, _P, _P],
@@ -84,6 +111,7 @@ _UNTYPED = {
 
 def reset_launches():
     launches.clear()
+    func_on_card.clear()
 
 
 def count_launch(name: str):
@@ -110,8 +138,14 @@ def _sources():
     return cu, hdr
 
 
-def _digest(files) -> str:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+def _flags(src: str) -> list:
+    extra = NO_FMA_FLAGS if os.path.basename(src).startswith(NO_FMA_PREFIX) else []
+    return NVCC_FLAGS + extra
+
+
+def _digest(files, flags=None) -> str:
+    flags = ARCH_FLAGS + NVCC_FLAGS + NO_FMA_FLAGS + [str(PARTS)] if flags is None else flags
+    h = hashlib.sha256(" ".join(flags).encode())
     for f in files:
         h.update(os.path.basename(f).encode())
         with open(f, "rb") as fh:
@@ -129,21 +163,31 @@ def _compile(lib_path: str) -> dict:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
         for src in cu:
-            obj = os.path.join(tmp, os.path.basename(src) + ".o")
-            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", src, "-o", obj]
-            procs.append((src, obj, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+            base = os.path.basename(src)
+            parts = PARTS.get(base, [[]])
+            for i, extra in enumerate(parts):
+                name = base if len(parts) == 1 else f"{base}[{i}]"
+                obj = os.path.join(tmp, f"{base}.{i}.o")
+                cmd = [nvcc, *ARCH_FLAGS, *_flags(src), *extra, "-c", src, "-o", obj]
+                procs.append((name, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
         logs = {}
-        failed = []
-        for src, _obj, p in procs:
+        seconds = {}
+
+        def wait(name, p):
             out, _ = p.communicate()
-            logs[os.path.basename(src)] = out.decode(errors="replace")
-            if p.returncode != 0:
-                failed.append(src)
+            logs[name] = out.decode(errors="replace")
+            seconds[name] = time.perf_counter() - t0
+
+        waiters = [threading.Thread(target=wait, args=(n, p)) for n, _o, p in procs]
+        for w in waiters:
+            w.start()
+        for w in waiters:
+            w.join()
+        failed = [n for n, _o, p in procs if p.returncode != 0]
         if failed:
             raise RuntimeError("nvcc failed for %s:\n%s" % (
-                ", ".join(failed),
-                "\n".join(logs[os.path.basename(f)] for f in failed)))
+                ", ".join(failed), "\n".join(logs[n] for n in failed)))
         tmp_lib = os.path.join(tmp, "lib.so")
         link = subprocess.run(
             [nvcc, *ARCH_FLAGS, "-shared", "-o", tmp_lib,
@@ -154,6 +198,7 @@ def _compile(lib_path: str) -> dict:
                 errors="replace"))
         os.replace(tmp_lib, lib_path)
     return {"seconds": time.perf_counter() - t0, "ptxas": logs,
+            "seconds_by_source": seconds,
             "sources": [os.path.basename(s) for s in cu], "built": True}
 
 
@@ -188,6 +233,66 @@ def library() -> ctypes.CDLL:
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def host_library() -> ctypes.CDLL:
+    """The element math of kernels M-P built as plain C++17 with g++ (one
+    process per source, linked into build/libstark_egh_host_<hash>.so):
+    entry points stk_host_egh_<family>_f32/_f64 (ptrs, scalars, E, e, g, H)
+    that loop over the rows on the CPU."""
+    global _host_lib
+    if _host_lib is not None:
+        return _host_lib
+    with _lock:
+        if _host_lib is not None:
+            return _host_lib
+        cu, hdr = _sources()
+        srcs = [s for s in cu if os.path.basename(s).startswith(NO_FMA_PREFIX)]
+        lib_path = os.path.join(BUILD_DIR, "libstark_egh_host_%s.so"
+                                % _digest(srcs + hdr, HOST_FLAGS))
+        if not os.path.exists(lib_path):
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: the host build of kernels "
+                                   "M-P needs a C++17 compiler")
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                procs = []
+                for src in srcs:
+                    obj = os.path.join(tmp, os.path.basename(src) + ".o")
+                    cmd = [gxx, *[f for f in HOST_FLAGS if f != "-shared"],
+                           "-c", src, "-o", obj]
+                    procs.append((src, obj, subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+                for src, _obj, p in procs:
+                    out, _ = p.communicate()
+                    if p.returncode != 0:
+                        raise RuntimeError("g++ failed for %s:\n%s" % (
+                            src, out.decode(errors="replace")))
+                tmp_lib = os.path.join(tmp, "lib.so")
+                link = subprocess.run([gxx, "-shared", "-o", tmp_lib,
+                                       *[o for _s, o, _p in procs]],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+                if link.returncode != 0:
+                    raise RuntimeError("g++ link failed:\n" + link.stdout.decode(
+                        errors="replace"))
+                os.replace(tmp_lib, lib_path)
+        lib = ctypes.CDLL(lib_path)
+        for f in EGH_FAMILIES:
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, "stk_host_egh_" + f + suffix)
+                fn.argtypes = _EGH_ARGS[:-1]
+                fn.restype = ctypes.c_int
+        _host_lib = lib
+        return _host_lib
+
+
+def host_entry(name: str, dtype: torch.dtype):
+    """The host build's counterpart of entry(name, dtype) for kernels M-P."""
+    suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    return getattr(host_library(), name.replace("stk_", "stk_host_", 1) + suffix)
 
 
 def entry(name: str, dtype: Optional[torch.dtype] = None):

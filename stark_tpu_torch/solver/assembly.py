@@ -3,8 +3,10 @@
 Port of the parts of `stark_tpu/solver/assembly.py` that the fused and the
 staged solves run:
 
-  * per-element energies, gradients and dense Hessians from `torch.func`
-    (`vmap` over `grad_and_value` / `hessian`, mirroring `jax.hessian`),
+  * per-element energies, gradients and dense Hessians through each
+    family's kernel (M-P, ops/egh.py `evaluate`) on the card, and from
+    `torch.func` (`vmap` over `grad_and_value` / `hessian`, mirroring
+    `jax.hessian`) on the CPU,
   * every per-block reduction through kernel A (`ops.segment_reduce`), an
     ordered segmented sum over a CSR,
   * the CG Hessian-vector product through kernel B (`ops.hvp_bucket`),
@@ -45,8 +47,8 @@ from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.func import grad_and_value, hessian, vmap
 
+from ..ops import egh
 from ..ops.block3 import block3_apply, block3_inverse
 from ..ops.compact import compact
 from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
@@ -63,10 +65,6 @@ _DYN_PREFIX = ("contact_", "friction_")
 
 def _is_dyn(name: str) -> bool:
     return name.startswith(_DYN_PREFIX)
-
-
-def _active_mask(rows):
-    return rows["active"] > 0.5
 
 
 @dataclass
@@ -141,11 +139,6 @@ class Evaluators:
         self.host_syncs += 1
         return x.cpu().numpy()
 
-    @staticmethod
-    def _gather(u, conn):
-        # u: (n_blocks, 3); conn: (E, arity) -> (E, arity, 3)
-        return u[conn]
-
     # ------------------------------------------------------------------
     # topology
     # ------------------------------------------------------------------
@@ -198,10 +191,9 @@ class Evaluators:
         E = torch.zeros((), dtype=_ACC, device=u.device)
         for name, fd in data.items():
             fam = self.fam_by_name[name]
-            u_e = self._gather(u, fd["conn"])
-            e = vmap(fam.energy_fn, in_dims=(0, 0, None))(u_e, fd["rows"], glob)
-            mask = _active_mask(fd["rows"])
-            E = E + torch.sum(torch.where(mask, e, torch.zeros_like(e)).to(_ACC))
+            # inactive rows come back zero
+            e = egh.evaluate(fam, u, fd["conn"], fd["rows"], glob, derivs=False)
+            E = E + torch.sum(e.to(_ACC))
         return E
 
     def energy_grad_hess(self, u, data, glob, topo: Topology,
@@ -222,22 +214,12 @@ class Evaluators:
         payload_parts = []
         for name, fd in data.items():
             fam = self.fam_by_name[name]
-            a = fam.arity
-            u_e = self._gather(u, fd["conn"])
-            g_e, e = vmap(grad_and_value(fam.energy_fn), in_dims=(0, 0, None))(
-                u_e, fd["rows"], glob)
-            H_e = vmap(hessian(fam.energy_fn), in_dims=(0, 0, None))(
-                u_e, fd["rows"], glob)
-            mask = _active_mask(fd["rows"])
-            e_m = torch.where(mask, e, torch.zeros_like(e)).to(_ACC)
+            # inactive rows come back zero, H symmetric
+            e, g_e, H_e = egh.evaluate(fam, u, fd["conn"], fd["rows"], glob)
+            e_m = e.to(_ACC)
             E = E + torch.sum(e_m)
             E_nsq = E_nsq + torch.sum(e_m ** 2)
-            g_e = torch.where(mask[:, None, None], g_e, torch.zeros_like(g_e))
             g_flat = g_e.reshape(-1, 3)
-            H_e = H_e.reshape(H_e.shape[0], a * 3, a * 3)
-            H_e = torch.where(mask[:, None, None], H_e, torch.zeros_like(H_e))
-            # enforce exact symmetry (autodiff roundoff)
-            H_e = 0.5 * (H_e + H_e.transpose(1, 2))
             hess[name] = H_e
             hrow = torch.sum(torch.abs(H_e), dim=2).reshape(-1, 3)
             payload_parts.append(torch.cat([g_flat, g_flat * g_flat, hrow], dim=-1))

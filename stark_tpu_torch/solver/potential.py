@@ -1,9 +1,12 @@
 """Potential registry: the PyTorch port of stark_tpu's GlobalPotential.
 
 Each registered `PotentialFamily` carries a plain PyTorch per-element energy
-function; gradient and dense element Hessians come from
+function and, where one is written, its hand-written CUDA kernel
+(`kernel`, ops/egh.py: kernels M-P). On CUDA tensors the kernel computes
+the element energies, gradients and dense Hessians; on CPU tensors (and on
+the card for a family without a kernel) they come from
 `torch.func.grad_and_value` / `torch.func.hessian` under `torch.func.vmap`
-(solver/assembly.py), mirroring `jax.grad`/`jax.hessian` under `vmap`.
+(ops/egh.py `plain`), mirroring `jax.grad`/`jax.hessian` under `vmap`.
 
 Element protocol
 ----------------
@@ -47,6 +50,10 @@ class PotentialFamily:
     # eigensolve is a measurable per-iteration cost and a provably-PSD
     # family projects to itself.
     psd: bool = False
+    # The CUDA launcher of the family's e/g/H kernel, (u, conn, rows, glob,
+    # derivs) -> e or (e, g (E, arity, 3), H (E, 3 arity, 3 arity)), inactive
+    # rows zero; None: torch.func on the card too (ops/egh.py `evaluate`).
+    kernel: Optional[Callable] = None
 
 
 class FamilyData:

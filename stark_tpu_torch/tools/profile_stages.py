@@ -10,8 +10,10 @@ cloth in contact over the box's top). At the state reached it times each stage o
 Newton iteration and profiles one more time step:
 
 - energy_grad_hess, energy, PD projection, cat + diag + inverse: host
-  launches between CUDA events (torch.func launches many small kernels, as
-  the solver does);
+  launches between CUDA events, as the solver launches them;
+- energy_grad_hess per family: each family's kernel (M-P) or, for a family
+  without one (friction, full shells), its torch.func twin, between CUDA
+  events;
 - the two kernels of one CG iteration (hvp_bucket + block3_apply): captured
   in a CUDA graph, so the time is the device's alone;
 - one CG iteration of the real `solve_pcg` loop, its host sync included;
@@ -69,6 +71,17 @@ def hanging_cloth():
     return sim
 
 
+def egh_by_family(ev, u, data, glob) -> dict:
+    """ms of one family's e, g and H as energy_grad_hess computes it (its
+    kernel on the card, or torch.func where it has none), host launches
+    between CUDA events."""
+    from stark_tpu_torch.ops import egh
+
+    return {name: events_ms(lambda fam=ev.fam_by_name[name], fd=fd: egh.evaluate(
+        fam, u, fd["conn"], fd["rows"], glob), iters=5, warmup=1)
+        for name, fd in data.items()}
+
+
 def stages(sim) -> dict:
     """Time of each stage of one Newton iteration at the scene's state."""
     from stark_tpu_torch.solver import assembly, project
@@ -114,6 +127,7 @@ def stages(sim) -> dict:
             ev.diag_bucket(ev.cat_with_live(topo.conn_cat, hp)[1], topo))),
         "cg_iteration_kernels": graph_ms(cg_kernels),
         "cg_iteration": events_ms(cg_loop, iters=3, warmup=1) / n_cg,
+        "energy_grad_hess_by_family": egh_by_family(ev, u, data, glob),
     }
 
 
@@ -218,6 +232,7 @@ def contact_stages(sim):
         "pool_rows": int(pool.conn32.shape[0]),
         "contact_rows": {k: int(v["conn"].shape[0]) for k, v in data.items()
                          if k.startswith("contact_")},
+        "energy_grad_hess_by_family": egh_by_family(ev, u, data, glob),
     }
     if dense and nm._M_dev is not None:
         out["ns_refresh"] = events_ms(lambda: ev.ns_refresh(

@@ -1,4 +1,4 @@
-"""Kernels A-L (and the staged solver's sites: B [staged], A [direct], I's
+"""Kernels A-P (and the staged solver's sites: B [staged], A [direct], I's
 contact mode) on a CUDA card against their plain twins, and small scenes on
 the card against the port on the CPU.
 
@@ -22,6 +22,8 @@ from stark_tpu_torch.ops import friction_pairs as fp, friction_rows as fr
 from stark_tpu_torch.ops import segment_reduce as sr, segment_triangle as st
 from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
 from stark_tpu_torch.collision import broad_phase as bp
+from stark_tpu_torch.ops import egh
+from stark_tpu_torch.tools import egh_cases as ec
 
 pytestmark = pytest.mark.cuda
 
@@ -831,3 +833,47 @@ def test_staged_friction_box_on_card_tracks_the_cpu_port(dev, monkeypatch):
     assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
     assert live_gpu == live_cpu and live_cpu[-1][0] > 0
     assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6
+
+
+# ---------------------------------------------------------------------------
+# kernels M-P: element energies, gradients and Hessians (K11)
+# ---------------------------------------------------------------------------
+EGH_CASES = [(n, "Cubic") for n in ec.KERNEL_FAMILIES] + \
+    [(n, "Log") for n in ec.KERNEL_FAMILIES if n.startswith("contact_")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name,barrier", EGH_CASES)
+def test_egh_kernels_match_twin(dev, dtype, name, barrier):
+    """Each family's kernel on the card against its torch.func twin on the
+    CPU: f64 within 1e-10 of each element's largest entry; f32 within 64
+    eps of it (where the f32 twin, or rounding the positions to float32,
+    moves farther from the f64 twin: or within twice that distance, element
+    by element, tools/egh_cases.f32_ratio); the value-only e bit for bit the derivative form's;
+    H symmetric, inactive rows zero; one launch counted per call."""
+    case = ec.make_case(name, sum(map(ord, name + barrier)))
+    fam = ec.port_families(barrier)[name]
+    glob64, u64, conn64, rows64 = ec.to_torch(*case)
+    ref = egh.plain(fam.energy_fn, u64, conn64, rows64, glob64)
+    spread = ec.f64_spread(fam.energy_fn, u64, conn64, rows64, glob64)
+    glob, u, conn, rows = ec.to_torch(*case, dtype=dtype, device=dev)
+    before = dict(build.launches)
+    out = fam.kernel(u, conn, rows, glob, True)
+    e_v = fam.kernel(u, conn, rows, glob, False)
+    torch.cuda.synchronize()
+    new = {k: v - before.get(k, 0) for k, v in build.launches.items()
+           if v != before.get(k, 0)}
+    assert len(new) == 2 and all(v == 1 for v in new.values()), new
+    assert torch.equal(out[0], e_v)
+    H = out[2]
+    assert torch.equal(H, H.transpose(1, 2))
+    inactive = rows["active"] <= 0.5
+    assert bool(torch.all(H[inactive] == 0)) and bool(torch.all(out[0][inactive] == 0))
+    if dtype == torch.float64:
+        for part, o, r in zip("egH", out, ref):
+            assert ec.f64_err(o.cpu().numpy(), r.numpy(), part) <= 1e-10
+    else:
+        glob32, u32, conn32, rows32 = ec.to_torch(*case, dtype=torch.float32)
+        twin32 = egh.plain(fam.energy_fn, u32, conn32, rows32, glob32)
+        for part, o, t, r, s in zip("egH", out, twin32, ref, spread):
+            assert ec.f32_ratio(o.cpu(), t, r, part, s)[0] <= 1.0

@@ -1,7 +1,7 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
 `chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`, and
-every module of the contact and staged-solver slices imports without a
-card or nvcc."""
+every module of the contact, staged-solver and element-derivative slices
+imports without a card or nvcc."""
 import ast
 import importlib
 import os
@@ -81,6 +81,19 @@ STAGED_SLICE = [
 ]
 
 
+# the element-derivative slice: kernels M-P's launcher and twin, the
+# models that register their families' tables with it, and the seeded
+# tables their checks use
+EGH_SLICE = [
+    "stark_tpu_torch.ops.egh",
+    "stark_tpu_torch.models.deformables.energies",
+    "stark_tpu_torch.models.rigidbodies.inertia",
+    "stark_tpu_torch.models.rigidbodies.constraints",
+    "stark_tpu_torch.models.interactions.contact_energies",
+    "stark_tpu_torch.tools.egh_cases",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
@@ -88,9 +101,10 @@ def test_port_has_files():
     names = {_module_name(f) for f in files}
     assert set(CONTACT_SLICE) <= names
     assert set(STAGED_SLICE) <= names
+    assert set(EGH_SLICE) <= names
 
 
-@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE)
+@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""
