@@ -30,7 +30,7 @@ Phases (every failure propagates; nothing is caught):
      phase 2 and running beside phases 3-8);
  10. run the same 32x32 spinning box with Coulomb friction mu = 1 (cloth and
      box, cloth and itself) in float32 for 0.3 simulated seconds (lagged
-     friction: kernels I and J besides A-H), print bench.py's fields and the
+     friction: kernels I, J and Q besides A-H), print bench.py's fields and the
      live friction rows, check it (finite, friction rows, no intersection,
      every kernel of the path launched), then hold kernels I and J against
      their twins on the CPU in f32 and f64 at the final state and time them
@@ -76,21 +76,41 @@ Phases (every failure propagates; nothing is caught):
      on phase 15's DirectLLT input; time them and the Cholesky (phases 14
      and 16 run in a child process, `chip_smoke.py --staged OUT`, started
      with phase 9's);
- 17. kernels M-P, the element energies, gradients and Hessians: phases 4,
-     7, 12 and 14 assert that every family of their path launched its
-     kernel (e, g, H and the value-only form) and none ran torch.func on
-     the card; at phase 4's, 7's and 12's states (the last in phase 12's
-     process) each family's kernel is held against its torch.func twin on
-     the card, f64 within 1e-10 of each element's largest entry and f32 by
-     tools/egh_cases.f32_ratio, the value-only e bit for bit the egh e, and
-     energy_grad_hess's E bit for bit energy()'s in f32 and f64; the
-     families no scene runs on seeded tables; then, on the idle card,
-     each family's kernel and twin are timed, and energy_grad_hess and
-     energy() whole with the kernels and with the twins.
+ 17. kernels M-S, the element energies, gradients and Hessians: phases 4,
+     7, 10, 12, 14 and 18-20 assert that every family of their path
+     launched its kernel (e, g, H and the value-only form) and that no
+     family ran torch.func on the card; at phase 4's, 7's, 10's, 12's,
+     18's and 19's states (10, 12, 18 and 19 in their processes) each
+     family's kernel is held against its torch.func twin on the card, f64
+     within 1e-10 of each element's largest entry and f32 by
+     tools/egh_cases.f32_ratio, the value-only e bit for bit the egh e,
+     and energy_grad_hess's E bit for bit energy()'s in f32 and f64; the
+     families no scene runs, and kernel Q under C0 and C1, on seeded
+     tables; then, on the idle card, each family's kernel and twin are
+     timed (R and S at phase 18's state, Q at phase 19's, Q's families
+     that only phase 10 fills on seeded tables), and energy_grad_hess and
+     energy() whole with the kernels and with the twins;
+ 18. run upstream's hanging_box_with_composite_material at n = 10 (1,331
+     nodes, 5,000 tets, surface membrane and flat shells, 120 rods on its
+     sharp edges; kernels S, R, M, P and A-D) in float32 for 0.25
+     simulated seconds, print bench.py's fields and check it: finite,
+     sagging, pins held, every kernel of the path launched;
+ 19. run upstream's deformable_and_rigid_collisions (Soft_Rubber boxes of
+     625 and 40 tets on a fixed rigid floor, mu = 1 on all three pairs;
+     kernels S, Q, N, O, P, E-J and A-D) in float32 for 0.3 simulated
+     seconds: finite, the lower box on the floor and the upper on it, live
+     contact and friction rows, no intersection, every kernel launched;
+ 20. run upstream's hanging_net at n = 20 (441 nodes, 1,240 rods, the
+     boundary pinned; kernels R, P and A-D) in float32 for 0.25 simulated
+     seconds: finite, sagging, every kernel launched (phases 18-20 and
+     their phase-17 part run in a child process, `chip_smoke.py --volumes
+     OUT`, started with phase 9's).
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
-goes is measured on demand by `python3 -m stark_tpu_torch.tools.profile_stages`.
+goes is measured on demand by `python3 -m stark_tpu_torch.tools.profile_stages`;
+`python3 chip_smoke.py --witness` (not part of the smoke) measures phase 19's
+contact rows and reruns phases 10, 18 and 19 under variants (witness_run).
 """
 from __future__ import annotations
 
@@ -1027,7 +1047,7 @@ def friction_run(out_json: str) -> int:
     assert sim.run(duration=FRICTION_SECONDS - 1e-9), "the friction run failed"
     torch.cuda.synchronize()
     wall = time.perf_counter() - t_run
-    launches = dict(build.launches)
+    launches = dict(build.launches, **func_launches())
     launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
     lg = sim.get_logger()
     newton = int(lg.get_stats("newton_iterations").total)
@@ -1056,10 +1076,16 @@ def friction_run(out_json: str) -> int:
     assert not intersects_now(sim), "the final state intersects"
     assert_launched(launches, CONTACT_KERNELS + FRICTION_KERNELS + SOLVER_KERNELS,
                     "the friction path")
+    assert_egh_path(sim, launches, BOX_FAMILIES, "the friction path",
+                    optional=[n for n in BOX_FAMILIES if n.startswith("contact_")])
+    assert_egh_path(sim, launches, BOX_FRICTION_FAMILIES, "the friction path",
+                    optional=BOX_FRICTION_FAMILIES)
     results = friction_kernel_checks(sim)
+    print("-- phase 17 (kernel Q at the friction run's state)", flush=True)
+    egh10 = egh_checks(sim, BOX_FRICTION_FAMILIES, "phase 10", 10)
     with open(out_json, "w") as f:
         json.dump({"fields": fields, "launches": launches, "results": results,
-                   "seconds": time.perf_counter() - t0}, f)
+                   "egh": egh10, "seconds": time.perf_counter() - t0}, f)
     return 0
 
 
@@ -1845,6 +1871,8 @@ def staged_run(out_json: str, go_file: str = None) -> int:
     assert_launched(launches, STAGED_KERNELS, "the staged path")
     assert_egh_path(sim, launches, BOX_FAMILIES, "the staged path",
                     optional=[n for n in BOX_FAMILIES if n.startswith("contact_")])
+    assert_egh_path(sim, launches, BOX_FRICTION_FAMILIES, "the staged path",
+                    optional=BOX_FRICTION_FAMILIES)
     if go_file:
         t_wait = time.perf_counter()
         while not os.path.exists(go_file):
@@ -1857,6 +1885,322 @@ def staged_run(out_json: str, go_file: str = None) -> int:
     with open(out_json, "w") as f:
         json.dump({"fields": fields, "launches": launches, "results": results,
                    "info": info, "seconds": time.perf_counter() - t0}, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phases 18-20: rods and volumes (kernels R, S) and soft bodies on a rigid
+# floor with friction (Q): upstream's example scenes at their sizes
+# ---------------------------------------------------------------------------
+COMPOSITE_SECONDS, COLLISIONS_SECONDS, NET_SECONDS = 0.25, 0.3, 0.25
+COMPOSITE_FAMILIES = ("EnergyLumpedInertia", "EnergyPrescribedPositions",
+                      "EnergySegmentStrain", "EnergyTriangleStrain", "EnergyBendingFlat",
+                      "EnergyTetStrain")
+COLLISIONS_FAMILIES = ("EnergyLumpedInertia", "EnergyTetStrain",
+                       "EnergyRigidBodyInertia_Linear", "EnergyRigidBodyInertia_Angular",
+                       "rb_constraint_global_points", "rb_constraint_global_directions")
+NET_FAMILIES = ("EnergyLumpedInertia", "EnergyPrescribedPositions", "EnergySegmentStrain")
+STEMS = ("pt_dd", "pt_dr", "pt_rd", "pt_rr", "ee_dd", "ee_dr", "ee_rr")
+CONTACT_FAMILIES = tuple("contact_" + st for st in STEMS)
+FRICTION_FAMILIES = tuple("friction_" + st for st in STEMS)
+# the spinning box's friction families (cloth and box, cloth and itself)
+BOX_FRICTION_FAMILIES = ("friction_pt_dd", "friction_pt_dr", "friction_pt_rd",
+                         "friction_ee_dd", "friction_ee_dr")
+
+
+def run_scene(sim, seconds: float, where: str):
+    """Step a scene for `seconds` at its largest step (bench.py's fields,
+    run_spinning_box's bookkeeping) and print the fields."""
+    steps = int(round(seconds / sim.stark.settings.simulation.max_time_step_size))
+    launches, fields = run_spinning_box(sim, steps)
+    launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
+    fields["fused_eligible"] = sim.stark.newton._fused_eligible()
+    print(f"{where}: " + json.dumps(fields), flush=True)
+    print(f"launches={launches}", flush=True)
+    return launches, fields
+
+
+def volumes_run(out_json: str, go_file: str = None) -> int:
+    """Phases 18-20, run as `chip_smoke.py --volumes OUT_JSON [GO_FILE]`, in
+    float32: hanging_box_with_composite_material (n = 10) for
+    COMPOSITE_SECONDS, deformable_and_rigid_collisions (n1 = 5, n2 = 2, mu
+    = 1) for COLLISIONS_SECONDS and hanging_net (n = 20) for NET_SECONDS,
+    each with bench.py's fields and its checks; then phase 17's checks of
+    R and S at phase 18's end state and of Q at phase 19's (kernel against
+    twin, f64 and f32), and, once GO_FILE exists (the other processes are
+    done with the card), their times; writes the fields, launches and
+    records."""
+    from stark_tpu_torch.tools.scenes import (deformable_and_rigid_collisions,
+                                              hanging_box_with_composite_material,
+                                              hanging_net)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # five processes share the host's cores
+    t0 = time.perf_counter()
+    out = {"fields": {}, "launches": {}, "egh": {}}
+
+    print("-- phase 18", flush=True)
+    sim18, nodes = hanging_box_with_composite_material("float32", DEVICE)
+    x_rest = nodes.get_positions().copy()
+    pins = np.asarray(sim18.deformables.prescribed_positions._nodes)
+    launches, fields = run_scene(sim18, COMPOSITE_SECONDS, "phase 18")
+    x = nodes.get_positions()
+    pin_dev = float(np.max(np.linalg.norm(x[pins] - x_rest[pins], axis=1)))
+    fields["pin_deviation"] = pin_dev
+    fields["mean_dz"] = float(np.mean(x[:, 2] - x_rest[:, 2]))
+    assert np.all(np.isfinite(x)), "phase 18: non-finite positions"
+    assert fields["mean_dz"] < 0.0, "phase 18: the box does not sag"
+    assert pin_dev < 2e-3, f"phase 18: pins moved by {pin_dev}"
+    assert_launched(launches, ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket",
+                               "pd_project"), "phase 18")
+    assert_egh_path(sim18, launches, COMPOSITE_FAMILIES, "phase 18")
+    out["fields"]["phase18"], out["launches"]["phase18"] = fields, launches
+
+    print("-- phase 19", flush=True)
+    sim19, (h1, h2, _floor) = deformable_and_rigid_collisions("float32", DEVICE)
+    launches, fields = run_scene(sim19, COLLISIONS_SECONDS, "phase 19")
+    x1, x2 = h1.point_set.get_positions(), h2.point_set.get_positions()
+    fields["box_min_z"] = [float(x1[:, 2].min()), float(x2[:, 2].min())]
+    assert np.all(np.isfinite(x1)) and np.all(np.isfinite(x2)), "phase 19: non-finite"
+    assert 0.0 < fields["box_min_z"][0] < 5e-3, \
+        f"phase 19: the lower box is not on the floor: {fields['box_min_z']}"
+    # the heavy upper box (1e4 kg/m^3) sinks well into the soft lower one
+    # (E = 1e4 Pa): it rests on it, above its bottom, and nothing intersects
+    assert fields["box_min_z"][1] > fields["box_min_z"][0] + 0.05, \
+        f"phase 19: the upper box is not on the lower one: {fields['box_min_z']}"
+    assert fields["live_pairs_last"] > 0 and fields["friction_rows_last"] > 0, \
+        "phase 19: no live contact or friction rows"
+    assert not intersects_now(sim19), "phase 19: the final state intersects"
+    assert_launched(launches, CONTACT_KERNELS + FRICTION_KERNELS, "phase 19")
+    assert_egh_path(sim19, launches, COLLISIONS_FAMILIES, "phase 19")
+    assert_egh_path(sim19, launches, CONTACT_FAMILIES, "phase 19", optional=CONTACT_FAMILIES)
+    assert_egh_path(sim19, launches, FRICTION_FAMILIES, "phase 19", optional=FRICTION_FAMILIES)
+    out["fields"]["phase19"], out["launches"]["phase19"] = fields, launches
+
+    print("-- phase 20", flush=True)
+    sim20, net = hanging_net("float32", DEVICE)
+    x_rest = net.point_set.get_positions().copy()
+    launches, fields = run_scene(sim20, NET_SECONDS, "phase 20")
+    x = net.point_set.get_positions()
+    fields["min_z"] = float(x[:, 2].min())
+    assert np.all(np.isfinite(x)), "phase 20: non-finite positions"
+    assert fields["min_z"] < -0.01, "phase 20: the net does not sag"
+    assert_launched(launches, ("segment_reduce[egh]", "hvp_bucket"), "phase 20")
+    assert_egh_path(sim20, launches, NET_FAMILIES, "phase 20")
+    out["fields"]["phase20"], out["launches"]["phase20"] = fields, launches
+
+    print("-- phase 17 (phases 18 and 19's states)", flush=True)
+    torch.set_num_threads(4)     # the twins' CPU runs
+    out["egh"]["phase18"] = egh_checks(sim18, COMPOSITE_FAMILIES, "phase 18", 18)
+    out["egh"]["phase19"] = egh_checks(
+        sim19, COLLISIONS_FAMILIES + CONTACT_FAMILIES + FRICTION_FAMILIES, "phase 19", 19)
+    if go_file:
+        t_wait = time.perf_counter()
+        while not os.path.exists(go_file):
+            assert time.perf_counter() - t_wait < 1200, "no go from the main process"
+            time.sleep(0.5)
+        print(f"waited {time.perf_counter() - t_wait:.1f}s for the card", flush=True)
+    print("-- phase 17 (times)", flush=True)
+    out["times"] = {
+        "phase18": egh_timings(sim18, ("EnergySegmentStrain", "EnergyTetStrain"), 18,
+                               out["launches"]["phase18"]),
+        "phase19": egh_timings(sim19, FRICTION_FAMILIES, 19, out["launches"]["phase19"])}
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# on demand, not part of the smoke: `chip_smoke.py --witness` (writes
+# chiprun_out/witness/)
+# ---------------------------------------------------------------------------
+WITNESS_DIR = os.path.join(ROOT, "chiprun_out", "witness")
+
+
+def _row_distances(fam, u, conn, rows, glob):
+    """Per row of a contact family, the distance d its energy reads (the
+    barrier and the edge-edge mollifier swapped for d and 1)."""
+    from torch.func import vmap
+
+    from stark_tpu_torch.collision import narrow_phase as nph
+    from stark_tpu_torch.models.interactions import contact_energies as ce
+
+    saved = ce.barrier, nph.edge_edge_mollifier
+    ce.barrier = lambda d, dhat, k, barrier_type, active: d
+    nph.edge_edge_mollifier = lambda *a: torch.ones((), dtype=u.dtype, device=u.device)
+    try:
+        return vmap(fam.energy_fn, in_dims=(0, 0, None))(u[conn], rows, glob)
+    finally:
+        ce.barrier, nph.edge_edge_mollifier = saved
+
+
+def _rel_rows(out, ref):
+    """Per row, max |out - ref| over the row's largest |ref| (inf where the
+    reference row is zero and the output is not)."""
+    n = out.shape[0]
+    o, r = out.double().reshape(n, -1), ref.double().reshape(n, -1).to(out.device)
+    s, e = r.abs().amax(dim=1), (o - r).abs().amax(dim=1)
+    return torch.where(s > 0, e / s.clamp_min(1e-300),
+                       torch.where(e > 0, torch.full_like(e, float("inf")),
+                                   torch.zeros_like(e)))
+
+
+def witness_contact_rows(sim, names, seed: int) -> dict:
+    """At a scene's state (egh_state's tables and iterate), per contact
+    family: each live row's gap dhat - d (float64), its kernel-against-twin
+    distances in float64 and float32, and the float64 twin's move under
+    input rounding at float32 and float64 precision (f64_spread); logs the
+    rows that sit closest to dhat and those farthest from their twin, and
+    saves the tables and outputs."""
+    from stark_tpu_torch.ops import egh
+    from stark_tpu_torch.tools.egh_cases import f64_spread
+
+    ev, data, glob, u, _topo = egh_state(sim, seed)
+    eps32 = torch.finfo(torch.float32).eps
+    dump, out = {"u": u.cpu(), "glob": {k: v.cpu() for k, v in glob.items()}}, {}
+    for name in names:
+        if name not in data:
+            continue
+        fam, conn, rows = ev.fam_by_name[name], data[name]["conn"], data[name]["rows"]
+        u64, rows64, glob64 = u.double(), _cast(rows, torch.float64), _cast(glob, torch.float64)
+        u32, rows32, glob32 = u.float(), _cast(rows, torch.float32), _cast(glob, torch.float32)
+        k64, t64 = fam.kernel(u64, conn, rows64, glob64, True), egh.plain(
+            fam.energy_fn, u64, conn, rows64, glob64)
+        k32, t32 = fam.kernel(u32, conn, rows32, glob32, True), egh.plain(
+            fam.energy_fn, u32, conn, rows32, glob32)
+        gap = rows64["dhat"] - _row_distances(fam, u64, conn, rows64, glob64)
+        sp32 = f64_spread(fam.energy_fn, u64, conn, rows64, glob64)
+        sp64 = f64_spread(fam.energy_fn, u64, conn, rows64, glob64,
+                          eps=torch.finfo(torch.float64).eps)
+        live = torch.nonzero(rows["active"] > 0.5).flatten()
+        n = conn.shape[0]
+        H64s = t64[2].reshape(n, -1).abs().amax(dim=1)
+        err64 = torch.maximum(_rel_rows(k64[1], t64[1]), _rel_rows(k64[2], t64[2]))
+        abs64 = (k64[2] - t64[2]).reshape(n, -1).abs().amax(dim=1)
+        d32 = (k32[2].double() - t32[2].double()).reshape(n, -1).abs().amax(dim=1)
+        d3264 = (k32[2].double() - t64[2]).reshape(n, -1).abs().amax(dim=1)
+        tol32 = 64.0 * eps32 * t32[2].double().reshape(n, -1).abs().amax(dim=1)
+        ratio32 = d32 / (tol32 + torch.finfo(torch.float32).tiny)
+        rows_out = []
+
+        def row(i, why):
+            r = {"row": int(i), "why": why, "gap": float(gap[i]), "H64_max": float(H64s[i]),
+                 "f64_rel": float(err64[i]), "f64_abs_H": float(abs64[i]),
+                 "f64_spread_eps64_H": float(sp64[2][i]),
+                 "f32_H_kernel_max": float(k32[2][i].abs().max()),
+                 "f32_H_twin32_max": float(t32[2][i].abs().max()),
+                 "f32_kernel_vs_twin32": float(d32[i]), "f32_kernel_vs_twin64": float(d3264[i]),
+                 "f32_ratio_64eps": float(ratio32[i]),
+                 "f64_spread_eps32_H": float(sp32[2][i])}
+            rows_out.append(r)
+            log("    " + json.dumps(r))
+
+        g_live = gap[live]
+        log(f"  {name}: {n} rows, {live.numel()} live; gap (dhat - d, m) min "
+            f"{float(g_live.min()) if live.numel() else 0:.3e} max "
+            f"{float(g_live.max()) if live.numel() else 0:.3e}; live rows with |gap| < "
+            f"1e-6: {int((g_live.abs() < 1e-6).sum())}, < 1e-5: "
+            f"{int((g_live.abs() < 1e-5).sum())}")
+        for i in live[torch.argsort(err64[live], descending=True)[:4]]:
+            row(i, "largest f64 error")
+        for i in live[torch.argsort(ratio32[live], descending=True)[:4]]:
+            row(i, "largest f32 error")
+        for i in live[torch.argsort(g_live.abs())[:4]]:
+            row(i, "closest to dhat")
+        out[name] = {"rows": n, "live": int(live.numel()), "gaps_live": g_live.tolist(),
+                     "examined": rows_out}
+        dump[name] = {"conn": conn.cpu(), "rows": {k: v.cpu() for k, v in rows.items()},
+                      "k64": [t.cpu() for t in k64], "t64": [t.cpu() for t in t64],
+                      "k32": [t.cpu() for t in k32], "t32": [t.cpu() for t in t32]}
+    torch.save(dump, os.path.join(WITNESS_DIR, f"rows_seed{seed}.pt"))
+    return out
+
+
+def witness_scene(make, seconds: float, label: str, twins=(), sweeps=None,
+                  moved: bool = False) -> dict:
+    """One run of a scene (make() -> (sim, point set handler, event or
+    None)) for `seconds`: with the families of `twins` on their torch.func
+    twins, kernel C's Jacobi at `sweeps`, and, if `moved`, the handler's
+    start positions moved by one float32 ulp each (random signs); Newton
+    iterations per step and the run's fields."""
+    from stark_tpu_torch.ops import build
+
+    sim, ps, event = make()
+    if event is not None:
+        sim.add_time_event(0.0, 10.0, event)
+    if sweeps is not None:
+        sim.stark.settings.device.jacobi_sweeps = sweeps
+    for fam in sim.stark.global_potential.families:
+        if fam.name in twins:
+            fam.kernel = None
+    if moved:
+        dyn = ps._dyn
+        b, e = dyn.intervals[ps.idx]
+        x = dyn._x0_host[b:e]
+        sign = np.random.default_rng(0).choice([-1.0, 1.0], x.shape)
+        dyn._x0_host[b:e] = x + sign * np.spacing(np.abs(x).astype(np.float32))
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert sim.run(duration=seconds - 1e-9), f"{label}: the run failed"
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lg = sim.get_logger()
+    newton = [int(v) for v in lg.series["newton_iterations"]]
+    r = {"label": label, "newton_per_step": newton, "newton": sum(newton),
+         "solver_codes": [int(c) for c in lg.series["solver_code"]],
+         "cg_per_newton": int(lg.get_stats("cg_iterations").total) / max(sum(newton), 1),
+         "ms_per_newton": 1e3 * wall / max(sum(newton), 1), "wall_s": wall,
+         "func_on_card": dict(build.func_on_card)}
+    log(f"  {label}: " + json.dumps(r))
+    return r, sim
+
+
+def witness_run() -> int:
+    """`chip_smoke.py --witness`: (1) phase 19's scene and, at its end
+    state, the floor's contact rows (witness_contact_rows); (2) phases 18
+    and 19 with kernel C's Jacobi at the card's default 8 sweeps and at
+    16; (3) phase 10's friction box with kernel Q, with Q's families on
+    their torch.func twins, and with kernel Q from a start moved by one
+    float32 ulp. Writes chiprun_out/witness/witness.json."""
+    from stark_tpu_torch.tools.scenes import (deformable_and_rigid_collisions,
+                                              hanging_box_with_composite_material)
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(WITNESS_DIR, exist_ok=True)
+    log(card_line())
+    out = {"card": card_line()}
+    boxes = lambda: (lambda s, h: (s, h[0].point_set, None))(
+        *deformable_and_rigid_collisions("float32", DEVICE))
+    composite = lambda: (lambda s, n: (s, n, None))(
+        *hanging_box_with_composite_material("float32", DEVICE))
+    friction_box = lambda: (lambda s, c, spin: (s, c.point_set, spin))(
+        *make_spinning_box(N_SBC, "float32", mu=FRICTION_MU))
+    log("-- the soft boxes (phase 19), then their contact rows")
+    r19, sim19 = witness_scene(boxes, COLLISIONS_SECONDS, "phase 19, 8 sweeps")
+    out["rows"] = witness_contact_rows(
+        sim19, ("contact_pt_dr", "contact_ee_dr", "contact_pt_dd", "contact_ee_dd"), 19)
+    log("-- kernel C's sweeps (phases 18, 19)")
+    out["sweeps"] = [r19, witness_scene(boxes, COLLISIONS_SECONDS, "phase 19, 16 sweeps",
+                                        sweeps=16)[0],
+                     witness_scene(composite, COMPOSITE_SECONDS, "phase 18, 8 sweeps")[0],
+                     witness_scene(composite, COMPOSITE_SECONDS, "phase 18, 16 sweeps",
+                                   sweeps=16)[0]]
+    log("-- the friction box (phase 10): kernel Q, Q's twins, a moved start")
+    out["friction_box"] = [
+        witness_scene(friction_box, FRICTION_SECONDS, "kernel Q")[0],
+        witness_scene(friction_box, FRICTION_SECONDS, "Q's twins",
+                      twins=BOX_FRICTION_FAMILIES)[0],
+        witness_scene(friction_box, FRICTION_SECONDS, "kernel Q, start moved one ulp",
+                      moved=True)[0]]
+    with open(os.path.join(WITNESS_DIR, "witness.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(json.dumps({"ok": True}))
     return 0
 
 
@@ -1900,7 +2244,7 @@ def et_ball_containment(eng, Vs, Vr, slack):
 
 
 # ---------------------------------------------------------------------------
-# phase 17: kernels M-P (element energies, gradients, Hessians) against
+# phase 17: kernels M-S (element energies, gradients, Hessians) against
 # their twins
 # ---------------------------------------------------------------------------
 # the families of the main path: bench.py's spinning box (12) and the
@@ -1912,10 +2256,13 @@ BOX_FAMILIES = ("EnergyLumpedInertia", "EnergyTriangleStrain", "EnergyBendingFla
                 "rb_constraint_global_points", "rb_constraint_global_directions",
                 "contact_pt_dd", "contact_pt_dr", "contact_pt_rd", "contact_ee_dd",
                 "contact_ee_dr")
-# the kernel families no scene of the smoke runs: seeded tables
-# (tools/egh_cases.py)
+# the kernel families no scene of the smoke runs, and kernel Q under both
+# friction types (the scenes run C0): seeded tables (tools/egh_cases.py)
 OFF_PATH_FAMILIES = ("EnergyTriangleStrain_ElasticityOnly", "contact_pt_rr",
-                     "contact_ee_rr")
+                     "contact_ee_rr", "EnergySegmentStrain_ElasticityOnly",
+                     "EnergyTetStrain_ElasticityOnly", "friction_pt_dd", "friction_pt_dr",
+                     "friction_pt_rd", "friction_pt_rr", "friction_ee_dd", "friction_ee_dr",
+                     "friction_ee_rr")
 _ENERGIES = "stark_tpu/models/deformables/energies.py:"
 _CONTACT = "stark_tpu/models/interactions/contact_energies.py:"
 EGH_REPLACES = {
@@ -1930,6 +2277,11 @@ EGH_REPLACES = {
     "contact_pt_dd": _CONTACT + "161", "contact_pt_dr": _CONTACT + "165",
     "contact_pt_rd": _CONTACT + "170", "contact_ee_dd": _CONTACT + "180",
     "contact_ee_dr": _CONTACT + "186",
+    "EnergySegmentStrain": _ENERGIES + "349", "EnergyTetStrain": _ENERGIES + "733",
+    "friction_pt_dd": _CONTACT + "208", "friction_pt_dr": _CONTACT + "213",
+    "friction_pt_rd": _CONTACT + "218", "friction_pt_rr": _CONTACT + "223",
+    "friction_ee_dd": _CONTACT + "228", "friction_ee_dr": _CONTACT + "233",
+    "friction_ee_rr": _CONTACT + "239",
 }
 
 
@@ -1943,10 +2295,10 @@ def func_launches():
 
 def assert_egh_path(sim, launches, names, where: str, optional=()):
     """Every family named launched its kernel (e, g, H and the value-only
-    form) in the run, and none ran torch.func on the card. A family in
+    form) in the run, and no family ran torch.func on the card. A family in
     `optional` may have had no rows in the run (the staged solve reads the
-    live contact rows only), but then none of `optional` may be missing
-    together."""
+    live contact rows only; a scene may have no pair of a stem), but then
+    none of `optional` may be missing together."""
     fams = {f.name: f for f in sim.stark.global_potential.families}
     empty = []
     for n in names:
@@ -1960,15 +2312,17 @@ def assert_egh_path(sim, launches, names, where: str, optional=()):
             assert launches.get(s, 0) > 0, f"{s} never launched on {where}"
     assert not optional or len(empty) < len(optional), f"no contact rows on {where}"
     on_card = {k: v for k, v in launches.items() if k.startswith("torch_func[")}
+    assert not on_card, f"torch.func ran on the card on {where}: {on_card}"
     log(f"  {where}: every kernel family launched{' but ' + str(empty) + ' (no rows)' if empty else ''}; "
-        f"torch.func on the card: {on_card or 'none'}")
+        f"torch.func on the card: none")
 
 
 def egh_state(sim, seed: int):
     """The tables one energy evaluation of the solve sees at the current
-    state (the static tables, and the contact tables the pair shell builds
-    there) and a seeded random iterate u ~ N(0, 0.01) m/s:
-    (evaluators, data, glob, u, static topology)."""
+    state (the static tables, the contact tables the pair shell builds
+    there and, with friction, the lagged tables of a step starting there)
+    and a seeded random iterate u ~ N(0, 0.01) m/s: (evaluators, data,
+    glob, u, static topology)."""
     nm = sim.stark.newton
     ev = nm._ev
     static = sim._get_static_data()
@@ -1981,6 +2335,12 @@ def egh_state(sim, seed: int):
         mc, _ic, _c = eng.broad_fn(Vs, Vr, th, f(0.016), f(0.002))
         tables, _c = eng.pairs_fn(Vs, Vr, th, mc, f(0.002))
         data.update(tables)
+        if eng.friction_enabled_now():
+            # the lagged tables of a step starting here (the fused solve's)
+            eglob = eng.glob_entries()
+            Vs0, Vr0 = eng.step_start_world(eng.engine_state())
+            fric, _c = eng.friction_tables(Vs0, Vr0, th, eglob["mu_mat"], eglob["contact_k"])
+            data.update(fric)
     rng = np.random.default_rng(seed)
     u = torch.as_tensor(rng.normal(0.0, 0.01, (nm.n_blocks, 3)), dtype=sim.stark.dtype,
                         device=DEVICE)
@@ -2044,6 +2404,8 @@ def egh_checks(sim, names, what: str, seed: int) -> dict:
     ev, data, glob, u, topo = egh_state(sim, seed)
     out = {}
     for name in names:
+        if name not in data:
+            continue      # a stem with no table at this state
         fd = data[name]
         out[name] = hold_egh(ev.fam_by_name[name], u, fd["conn"], fd["rows"], glob, what)
     bad = [n for n, r in out.items() if not r["ok"]]
@@ -2060,16 +2422,20 @@ def egh_checks(sim, names, what: str, seed: int) -> dict:
 
 def off_path_checks() -> dict:
     """The kernel families no scene of the smoke runs, on seeded tables
-    (tools/egh_cases.py, both barriers for the contact ones)."""
+    (tools/egh_cases.py, both barriers for the contact ones, both friction
+    types for the friction ones)."""
     from stark_tpu_torch.tools import egh_cases as ec
 
     out = {}
     for name in OFF_PATH_FAMILIES:
-        for barrier in (("Cubic", "Log") if name.startswith("contact_") else ("Cubic",)):
-            case = ec.make_case(name, sum(map(ord, name + barrier)))
+        modes = (("Cubic", "Log") if name.startswith("contact_") else
+                 ("C0", "C1") if name.startswith("friction_") else ("Cubic",))
+        for mode in modes:
+            case = ec.make_case(name, sum(map(ord, name + mode)))
             glob, u, conn, rows = ec.to_torch(*case, device=DEVICE)
-            fam = ec.port_families(barrier)[name]
-            out[f"{name}[{barrier}]"] = hold_egh(fam, u, conn, rows, glob, "seeded")
+            fam = ec.port_families(*(("Cubic", mode) if mode in ("C0", "C1")
+                                     else (mode,)))[name]
+            out[f"{name}[{mode}]"] = hold_egh(fam, u, conn, rows, glob, "seeded")
     bad = [n for n, r in out.items() if not r["ok"]]
     assert not bad, f"seeded tables: {bad} disagree with their twins"
     return out
@@ -2095,6 +2461,22 @@ EGH_OPS = {
     "pt_dd": (98, None), "pt_dr": (209, None), "pt_rd": (185, None),
     "pt_rr": (296, None), "ee_dd": (132, None), "ee_dr": (231, None),
     "ee_rr": (330, None),
+    # R: x1 and d (15), |d| (6), the stretch (~10), the cubic limit (~7),
+    # the rate against x0's strain (~17); H is [[A, -A], [-A, A]], A a
+    # symmetric 3x3
+    "segment": (55, 6), "segment_eo": (31, 6),
+    # S: x1 (24), Dx and F = Dx DXinv (54), det (17), Ic (17), the Stable
+    # Neo-Hookean terms (~21); full adds F0 (54), F^T F twice (90), the
+    # Green strains and their rate (54), the deviator's norm and the
+    # limit (~32)
+    "tet": (363, None), "tet_eo": (133, None),
+    # Q: the sides' velocities (soft: weights ~15; rigid: the rotation 69
+    # and ~27 per local point for v + w x R loc), vb - va (3), ut = T v dt
+    # + pert (14), |ut| (4) and the potential (~6)
+    "friction_pt_dd": (42, None), "friction_pt_dr": (192, None),
+    "friction_pt_rd": (138, None), "friction_pt_rr": (288, None),
+    "friction_ee_dd": (45, None), "friction_ee_dr": (168, None),
+    "friction_ee_rr": (291, None),
 }
 
 
@@ -2128,41 +2510,48 @@ def egh_bound(fam, u, conn, rows, glob, outs) -> tuple:
     return b, n_live * (v_ops + 2 * d + 2 * h)
 
 
+def time_family(fam, u, conn, rows, glob, launches: dict, where: str = "") -> dict:
+    """One family's kernel (e, g, H and value-only forms; 20 launches in a
+    CUDA graph, replayed 5 times) against its torch.func twin (host
+    launches), with the bound from these rows and the path's launches."""
+    from stark_tpu_torch.ops import egh
+
+    e, g, H = fam.kernel(u, conn, rows, glob, True)
+    E = conn.shape[0]
+    n_bytes, flops = egh_bound(fam, u, conn, rows, glob, (e, g, H))
+    bnd = bound_ms(n_bytes, flops, u.dtype)
+    site = fam.kernel.site
+    r = dict(
+        site=site, launches=launches.get(site, 0),
+        launches_e=launches.get(site[:-1] + ":e]", 0),
+        ms=graph_ms(lambda: fam.kernel(u, conn, rows, glob, True)),
+        ms_e=graph_ms(lambda: fam.kernel(u, conn, rows, glob, False)),
+        plain_ms=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob),
+                           iters=5, warmup=2),
+        plain_ms_e=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob,
+                                               False), iters=5, warmup=2),
+        bound_ms=bnd[0], bound_by=bnd[1], flops=flops, bytes=n_bytes,
+        shape=f"{where}{E} rows ({int((rows['active'] > 0.5).sum())} live), "
+              f"H {tuple(H.shape)}")
+    log(f"  {site:<36} {r['ms']:.4f} ms (e only {r['ms_e']:.4f}) twin "
+        f"{r['plain_ms']:.3f} ms (e only {r['plain_ms_e']:.3f}); bound "
+        f"{r['bound_ms']:.2e} ms ({r['bound_by']}); {r['shape']}")
+    return r
+
+
 def egh_timings(sim, names, seed: int, launches: dict) -> dict:
     """Phase 17's times at a scene's state, on the idle card (float32): per
     family the kernel (e, g, H and value-only forms; 20 launches in a CUDA
     graph, replayed 5 times) against its torch.func twin (host launches),
     the bound from this run's rows, and the whole energy_grad_hess and
     energy() with the kernels and with the twins."""
-    from stark_tpu_torch.ops import egh
-
     ev, data, glob, u, topo = egh_state(sim, seed)
     csr = ev.egh_csr(data)
     out = {}
     for name in names:
-        fam = ev.fam_by_name[name]
-        conn, rows = data[name]["conn"], data[name]["rows"]
-        e, g, H = fam.kernel(u, conn, rows, glob, True)
-        E = conn.shape[0]
-        n_bytes, flops = egh_bound(fam, u, conn, rows, glob, (e, g, H))
-        bnd = bound_ms(n_bytes, flops, u.dtype)
-        site = fam.kernel.site
-        out[name] = dict(
-            site=site, launches=launches.get(site, 0),
-            launches_e=launches.get(site[:-1] + ":e]", 0),
-            ms=graph_ms(lambda: fam.kernel(u, conn, rows, glob, True)),
-            ms_e=graph_ms(lambda: fam.kernel(u, conn, rows, glob, False)),
-            plain_ms=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob),
-                               iters=5, warmup=2),
-            plain_ms_e=events_ms(lambda: egh.plain(fam.energy_fn, u, conn, rows, glob,
-                                                   False), iters=5, warmup=2),
-            bound_ms=bnd[0], bound_by=bnd[1], flops=flops, bytes=n_bytes,
-            shape=f"{E} rows ({int((rows['active'] > 0.5).sum())} live), "
-                  f"H {tuple(H.shape)}")
-        r = out[name]
-        log(f"  {site:<36} {r['ms']:.4f} ms (e only {r['ms_e']:.4f}) twin "
-            f"{r['plain_ms']:.3f} ms (e only {r['plain_ms_e']:.3f}); bound "
-            f"{r['bound_ms']:.2e} ms ({r['bound_by']}); {r['shape']}")
+        if name in data:
+            out[name] = time_family(ev.fam_by_name[name], u, data[name]["conn"],
+                                    data[name]["rows"], glob, launches)
     whole = {"egh_ms": events_ms(lambda: ev.energy_grad_hess(u, data, glob, topo, csr),
                                  iters=10),
              "energy_ms": events_ms(lambda: ev.energy(u, data, glob), iters=10)}
@@ -2183,15 +2572,39 @@ def egh_timings(sim, names, seed: int, launches: dict) -> dict:
     return {"families": out, "whole": whole}
 
 
+def seeded_timings(names, launches: dict) -> dict:
+    """Times (time_family) of families on their seeded tables
+    (tools/egh_cases.py, C0 for kernel Q), float32, beside the launches of
+    the path that ran them."""
+    from stark_tpu_torch.tools import egh_cases as ec
+
+    out = {}
+    for name in names:
+        case = ec.make_case(name, sum(map(ord, name + "C0")))
+        glob, u, conn, rows = ec.to_torch(*case, dtype=torch.float32, device=DEVICE)
+        fam = ec.port_families("Cubic", "C0")[name]
+        out[name] = time_family(fam, u, conn, rows, glob, launches, "seeded, ")
+    return out
+
+
 # the mangled name of each family's float32 derivative kernel
 _SPILL_KEYS = {"strain": "9FamStrainILb1EEfLb1E", "lumped": "9FamLumpedfLb1E",
                "prescribed": "13FamPrescribedfLb1E", "shells_flat": "13FamShellsFlatfLb1E",
                "rb_linear": "11FamRbLinearfLb1E", "rb_angular": "12FamRbAngularfLb1E",
                "global_points": "15FamGlobalPointsfLb1E",
                "global_directions": "19FamGlobalDirectionsfLb1E",
-               "pt_dd": "ILb0ELb0ELb0EEfLb1E", "pt_dr": "ILb0ELb0ELb1EEfLb1E",
-               "pt_rd": "ILb0ELb1ELb0EEfLb1E", "ee_dd": "ILb1ELb0ELb0EEfLb1E",
-               "ee_dr": "ILb1ELb1ELb0EEfLb1E"}
+               "pt_dd": "10FamContactILb0ELb0ELb0EEfLb1E",
+               "pt_dr": "10FamContactILb0ELb0ELb1EEfLb1E",
+               "pt_rd": "10FamContactILb0ELb1ELb0EEfLb1E",
+               "ee_dd": "10FamContactILb1ELb0ELb0EEfLb1E",
+               "ee_dr": "10FamContactILb1ELb1ELb0EEfLb1E",
+               "segment": "10FamSegmentILb1EEfLb1E", "segment_eo": "10FamSegmentILb0EEfLb1E",
+               "tet": "6FamTetILb1EEfLb1E", "tet_eo": "6FamTetILb0EEfLb1E"}
+_SPILL_KEYS.update({"friction_" + stem: "11FamFrictionILb%dELb%dELb%dEEfLb1E" % flags
+                    for stem, flags in (("pt_dd", (0, 0, 0)), ("pt_dr", (0, 0, 1)),
+                                        ("pt_rd", (0, 1, 0)), ("pt_rr", (0, 1, 1)),
+                                        ("ee_dd", (1, 0, 0)), ("ee_dr", (1, 1, 0)),
+                                        ("ee_rr", (1, 1, 1)))})
 
 
 def spill_of(spills: dict, site: str):
@@ -2292,6 +2705,19 @@ STAGED_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket[sta
 STAGED_RUN_KERNELS = ("hvp_bucket[staged]", "contact_pairs[pt]", "contact_pairs[ee]")
 
 
+def egh_record(name, t, c, spills, **extra) -> dict:
+    """The kernels line's record of a family's egh kernel: its times and
+    launches `t` (time_family), its check `c` (hold_egh)."""
+    kind = t["site"].split("[")[0]
+    return {"name": t["site"], "route": "cuda", "source": f"stark_tpu_torch/csrc/{kind}.cu",
+            "replaces": EGH_REPLACES[name], "launches": t["launches"],
+            "max_abs_err": c["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": None,
+            "shape": t["shape"], **extra, "launches_value_only": t["launches_e"],
+            "ms_value_only": t["ms_e"], "plain_ms_value_only": t["plain_ms_e"],
+            "spill_stores": spill_of(spills, t["site"])}
+
+
 def assert_launched(launches, names, where: str):
     """Every kernel named was launched at least once in the run."""
     for k in names:
@@ -2325,12 +2751,13 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phases 9, 10, 12-13 and 14 run beside phases 3-8, each in a process of its own:
+    # phases 9, 10, 12-13, 14 and 18-20 run beside phases 3-8, each in a process of its own:
     # the work is host-bound (one Python thread each) and the card mostly idle
     children = [start_child("--golden-sbc16", "golden_sbc16"),
                 start_child("--friction", "friction"),
                 start_child("--scale64", "scale64"),
-                start_child("--staged", "staged", os.path.join(OUT_DIR, "staged.go"))]
+                start_child("--staged", "staged", os.path.join(OUT_DIR, "staged.go")),
+                start_child("--volumes", "volumes", os.path.join(OUT_DIR, "volumes.go"))]
     try:
         return phases_3_to_11(card, t_start, *children)
     finally:
@@ -2342,7 +2769,7 @@ def main() -> int:
 
 
 def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
-                   staged_child) -> int:
+                   staged_child, volumes_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -2483,16 +2910,37 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     log(f"  {r14['seconds']:.2f}s (beside phases 3-13)")
     launches_staged = r14["launches"]
     results.update(r14["results"])
+    # phase 16 is done with the card: phase 17's times at 18's and 19's states
+    open(os.path.join(OUT_DIR, "volumes.go"), "w").close()
 
-    # ---- 17: kernels M-P, on the idle card (every child is done)
-    log("phase 17: kernels M-P against their twins (f64 and f32) at phase 4's, 7's "
-        "and 12's states, and on seeded tables for the families no scene runs")
+    # ---- 18-20: rods and volumes (their own process, started with 9's)
+    log(f"phases 18-20: hanging_box_with_composite_material 10 ({COMPOSITE_SECONDS} s), "
+        f"deformable_and_rigid_collisions 5/2 mu=1 ({COLLISIONS_SECONDS} s), hanging_net "
+        f"20 ({NET_SECONDS} s), float32, cuda; kernels R, S, Q against their twins")
+    r18 = finish_child(volumes_child, "the rods-and-volumes run")
+    with open(os.path.join(OUT_DIR, "volumes.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("phase 18:", "phase 19:", "phase 20:", "launches=", "-- ",
+                                "  ", "waited")):
+                log("  " + line.strip())
+    log(f"  {r18['seconds']:.2f}s (beside phases 3-16)")
+
+    # ---- 17: kernels M-S, on the idle card (every child is done)
+    log("phase 17: kernels M-S against their twins (f64 and f32) at phase 4's, 7's, "
+        "10's, 12's, 18's and 19's states, and on seeded tables for the families no "
+        "scene runs and kernel Q under C0 and C1")
     r17 = {"phase4": egh_checks(sim64, CLOTH_FAMILIES, "phase 4", 4),
            "phase7": egh_checks(sbc, BOX_FAMILIES, "phase 7", 7),
-           "phase12": r12["egh"], "off_path": off_path_checks()}
-    for name, c in r12["egh"].items():
-        log(f"  {name:<36} phase 12  rows={c['rows']:<6} live={c['live_rows']:<6} "
-            f"f64 rel err={c['f64_rel_err']:.2e}  f32 err/tol={c['f32_err_over_tol']:.3f}")
+           "phase10": r10["egh"], "phase12": r12["egh"], "phase18": r18["egh"]["phase18"],
+           "phase19": r18["egh"]["phase19"], "off_path": off_path_checks()}
+    # kernel Q's families that phase 19 leaves without live rows but phase
+    # 10 runs (the box's corners on the cloth: friction_pt_rd): times on
+    # seeded tables, launches from phase 10
+    t19 = r18["times"]["phase19"]["families"]
+    seeded_q = [n for n in BOX_FRICTION_FAMILIES
+                if n not in t19 or r17["phase19"][n]["live_rows"] == 0]
+    log(f"phase 17 (times): {seeded_q} on seeded tables, float32")
+    tq = seeded_timings(seeded_q, launches_fric)
     log("phase 17 (times): the 32x32 spinning box at phase 7's end, float32")
     t7 = egh_timings(sbc, BOX_FAMILIES, 7, launches_sbc)
     log("phase 17 (times): the 64x64 cloth at phase 4's end, float32")
@@ -2525,18 +2973,20 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                         **({"left_out": r["left_out"]} if "left_out" in r else {})})
     for name in BOX_FAMILIES + ("EnergyPrescribedPositions",):
         cloth = name == "EnergyPrescribedPositions"
-        t = (t4 if cloth else t7)["families"][name]
-        c = r17["phase4" if cloth else "phase7"][name]
-        kind = t["site"].split("[")[0]
-        kernels.append({"name": t["site"], "route": "cuda",
-                        "source": f"stark_tpu_torch/csrc/{kind}.cu",
-                        "replaces": EGH_REPLACES[name], "launches": t["launches"],
-                        "max_abs_err": c["max_abs_err"], "ms": t["ms"],
-                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                        "bound_by": t["bound_by"], "library_ms": None,
-                        "shape": t["shape"], "launches_value_only": t["launches_e"],
-                        "ms_value_only": t["ms_e"], "plain_ms_value_only": t["plain_ms_e"],
-                        "spill_stores": spill_of(spills, t["site"])})
+        kernels.append(egh_record(name, (t4 if cloth else t7)["families"][name],
+                                  r17["phase4" if cloth else "phase7"][name], spills))
+    # kernels R and S at phase 18's state, Q at phase 19's (or seeded)
+    t18 = r18["times"]["phase18"]["families"]
+    for name in ("EnergySegmentStrain", "EnergyTetStrain") + FRICTION_FAMILIES:
+        if name in t18:
+            t, c, where = t18[name], r17["phase18"][name], "phase 18"
+        elif name in t19 and r17["phase19"][name]["live_rows"] > 0:
+            t, c, where = t19[name], r17["phase19"][name], "phase 19"
+        elif name in tq:
+            t, c, where = tq[name], r17["off_path"][f"{name}[C0]"], "seeded"
+        else:
+            continue
+        kernels.append(egh_record(name, t, c, spills, state=where))
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
@@ -2549,7 +2999,11 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                "spinning_box_launches": launches_sbc,
                "friction_launches": launches_fric,
                "golden16_f64_max_dev": worst, "egh_phase17": r17,
-               "egh_times": {"spinning_box32": t7, "cloth64": t4}, "egh_spills": spills,
+               "egh_times": {"spinning_box32": t7, "cloth64": t4,
+                             "composite_box": r18["times"]["phase18"],
+                             "soft_boxes": r18["times"]["phase19"], "seeded_q": tq},
+               "egh_spills": spills,
+               "volumes_runs": r18["fields"], "volumes_launches": r18["launches"],
                "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
                "build_s": build.build_info["seconds"],
@@ -2574,4 +3028,8 @@ if __name__ == "__main__":
         sys.exit(scale64_run(sys.argv[2]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--staged":
         sys.exit(staged_run(*sys.argv[2:]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--volumes":
+        sys.exit(volumes_run(*sys.argv[2:]))
+    if len(sys.argv) == 2 and sys.argv[1] == "--witness":
+        sys.exit(witness_run())
     sys.exit(main())

@@ -1,4 +1,4 @@
-// Element math shared by kernels M-P: per-element energy, gradient and dense
+// Element math shared by kernels M-S: per-element energy, gradient and dense
 // Hessian of the incremental potential's families (K11).
 //
 // Replaces stark_tpu/solver/assembly.py:117-135, which takes every element
@@ -392,13 +392,18 @@ STK_HD S sq_pp(const Vec<S>& p, const Vec<S>& q) {
   const Vec<S> d = vsub(p, q);
   return vdot(d, d);
 }
+// the squared distance to the line (a, b) as |ap - s ab|^2, s = ap.ab /
+// |ab|^2 (the twin's narrow_phase._sq_point_line_projected): the reference's
+// |ap|^2 - (ap.ab)^2 / |ab|^2 loses ~eps |ap|^2 to cancellation, the whole
+// square of a gap of a few mm beside a 2 m edge in float32
 template <typename S>
 STK_HD S sq_pl(const Vec<S>& p, const Vec<S>& a, const Vec<S>& b) {
   using T = decltype(val(p.x));
   const Vec<S> ab = vsub(b, a);
   const Vec<S> ap = vsub(p, a);
-  const S e = vdot(ap, ab);
-  return vdot(ap, ap) - guarded_div_(e * e, vdot(ab, ab), T(STK_TINY));
+  const S s = guarded_div_(vdot(ap, ab), vdot(ab, ab), T(STK_TINY));
+  const Vec<S> c{ap.x - s * ab.x, ap.y - s * ab.y, ap.z - s * ab.z};
+  return vdot(c, c);
 }
 template <typename S>
 STK_HD S sq_pf(const Vec<S>& p, const Vec<S>& a, const Vec<S>& b, const Vec<S>& c) {

@@ -25,7 +25,10 @@
 // curvature of the rotation (the twin's Hessian is exact, not
 // Gauss-Newton). The face and line-line distances are |l| / |n|, not the
 // twin's sqrt(l^2 / n.n) (egh_common.cuh `plane_distance`): the same
-// value, without the float32 cancellation near contact. An inactive row
+// value, without the float32 cancellation near contact. The point-edge
+// squared distances are |ap - s ab|^2, as the twin's (`projected=True`),
+// not the reference's difference of squares, which beside a rigid floor's
+// 2 m edges lost most of a float32 gap. An inactive row
 // is written as exact zeros and never evaluated (the twin shifts its
 // points, evaluates, then masks).
 //

@@ -41,10 +41,14 @@ def dot(a, b):
 
 
 def cubic_one_sided(x, stiffness):
-    """One-sided cubic penalty: stiffness*x^3/3 for x>0, else 0.
-    Polynomial, so both branches are smooth -> plain where is
-    derivative-safe."""
-    return torch.where(x > 0.0, stiffness * x * x * x / 3.0, torch.zeros_like(x))
+    """One-sided cubic penalty: stiffness*x^3/3 for x>0, else 0. The cubic
+    reads x clamped at 0 (the "double where"): with the providers' "no
+    limit" of 1e30 the unselected branch's float32 derivative is inf, and
+    0 * inf would make the gradient NaN (JAX's single where does that); the
+    values and every derivative are otherwise the same."""
+    pos = x > 0.0
+    xp = torch.where(pos, x, torch.zeros_like(x))
+    return torch.where(pos, stiffness * xp * xp * xp / 3.0, torch.zeros_like(x))
 
 
 def dihedral_angle(x0, x1, x2, x3, eps: float = None):

@@ -1,17 +1,18 @@
 """Deformables aggregate: one object owning the deformable energy models.
 
-Port of `stark_tpu/models/deformables/deformables.py` for the cloth path:
-point sets + lumped inertia + prescribed positions + triangle strain +
-discrete shells. Segment strain and tet strain are ROADMAP Queue 1 P7, and
-mesh output is P10; those attributes raise NotImplementedError.
+Port of `stark_tpu/models/deformables/deformables.py`: point sets + lumped
+inertia + prescribed positions + segment strain + triangle strain +
+discrete shells + tet strain, registered in the JAX package's order. Mesh
+output is ROADMAP Queue 1 P10; that attribute raises NotImplementedError.
 """
 from __future__ import annotations
 
 from ..point_dynamics import PointDynamics
 from .energies import (EnergyDiscreteShells, EnergyLumpedInertia,
-                       EnergyPrescribedPositions, EnergyTriangleStrain)
+                       EnergyPrescribedPositions, EnergySegmentStrain,
+                       EnergyTetStrain, EnergyTriangleStrain)
 
-_LATER = {"segment_strain": "P7", "tet_strain": "P7", "output": "P10"}
+_LATER = {"output": "P10"}
 
 
 class Deformables:
@@ -19,8 +20,10 @@ class Deformables:
         self.point_sets = dyn
         self.lumped_inertia = EnergyLumpedInertia(stark, dyn)
         self.prescribed_positions = EnergyPrescribedPositions(stark, dyn)
+        self.segment_strain = EnergySegmentStrain(stark, dyn)
         self.triangle_strain = EnergyTriangleStrain(stark, dyn)
         self.discrete_shells = EnergyDiscreteShells(stark, dyn)
+        self.tet_strain = EnergyTetStrain(stark, dyn)
 
     def __getattr__(self, name):
         if name in _LATER:

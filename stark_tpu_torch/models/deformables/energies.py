@@ -1,16 +1,15 @@
 """Deformable energy models (per-element incremental potentials).
 
-Port of `stark_tpu/models/deformables/energies.py` for the four families the
-cloth path registers: lumped inertia, prescribed positions, triangle strain
-and discrete shells (full and flat-rest). Each energy is a plain PyTorch
-per-element function `(u_e, row, glob) -> scalar`, the plain twin from
-which `torch.func` derives its gradient and Hessian (ops/egh.py); on the
-card kernels M (triangle strain) and P (the others but full shells)
-compute them. The host-side table builders
-(rest-pose precomputation) are numpy copies of the JAX package's, so both
-packages freeze identical element tables.
-
-The rod (segment strain) and tet families are ROADMAP Queue 1 P7.
+Port of `stark_tpu/models/deformables/energies.py`: lumped inertia,
+prescribed positions, segment (rod) strain, triangle strain, discrete
+shells (full and flat-rest) and tet strain (Stable Neo-Hookean). Each
+energy is a plain PyTorch per-element function `(u_e, row, glob) ->
+scalar`, the plain twin from which `torch.func` derives its gradient and
+Hessian (ops/egh.py); on the card kernels M (triangle strain), P (the
+inertia, prescribed and flat-shell families), R (segment strain) and S
+(tet strain) compute them; full DiscreteShells still takes torch.func. The
+host-side table builders (rest-pose precomputation) are numpy copies of the
+JAX package's, so both packages freeze identical element tables.
 """
 from __future__ import annotations
 
@@ -318,6 +317,114 @@ class EnergyPrescribedPositions:
 
 
 # ============================================================================
+# Segment (rod) strain
+# ============================================================================
+@dataclass
+class SegmentStrainParams(FluentParams):
+    elasticity_only: bool = False
+    scale: float = 1.0
+    section_radius: float = 0.001
+    youngs_modulus: float = 1e6
+    damping: float = 0.0
+    strain_limit: float = math.inf
+    strain_limit_stiffness: float = 1e4
+
+
+# kernel R's entries, full and elasticity-only (csrc/egh_rod.cu)
+_SEGMENT_READS = [("r", "nodes"), ("r", "l_rest"), ("r", "section_radius"),
+                  ("r", "youngs_modulus"), ("r", "strain_damping"), ("r", "strain_limit"),
+                  ("r", "strain_limit_stiffness"), ("g", "x0"), ("g", "dt")]
+
+
+class EnergySegmentStrain:
+    NAME = "EnergySegmentStrain"
+    NAME_EO = "EnergySegmentStrain_ElasticityOnly"
+
+    def __init__(self, stark, dyn):
+        self.stark = stark
+        self.dyn = dyn
+        self.params_per_group: list[SegmentStrainParams] = []
+        self._edges = {self.NAME: [], self.NAME_EO: []}
+        self._groups = {self.NAME: [], self.NAME_EO: []}
+        stark.global_potential.add_potential(
+            PotentialFamily(self.NAME, 2, self._energy_full,
+                            kernel=egh.kernel("egh_rod", "segment", _SEGMENT_READS)),
+            lambda: self._provider(self.NAME))
+        stark.global_potential.add_potential(
+            PotentialFamily(self.NAME_EO, 2, self._energy_eo,
+                            kernel=egh.kernel("egh_rod", "segment_eo", _SEGMENT_READS)),
+            lambda: self._provider(self.NAME_EO))
+
+    def _strain(self, u_e, row, glob):
+        dt = glob["dt"]
+        x0 = glob["x0"][row["nodes"]]
+        x1 = x0 + dt * u_e
+        l_rest = row["l_rest"]
+        l1 = maths.safe_norm(x1[0] - x1[1])
+        e = (l1 - l_rest) / l_rest
+        volume = math.pi * 1.0 * row["section_radius"] ** 2 * l_rest
+        E_s = volume * row["youngs_modulus"] * e * e / 2.0
+        return e, volume, E_s, x0
+
+    def _energy_full(self, u_e, row, glob):
+        # EnergySegmentStrain.cpp:11-56; the limit's cubic reads eo clamped
+        # at 0 (maths.cubic_one_sided's double where: float32 "no limit")
+        dt = glob["dt"]
+        e, volume, E_s, x0 = self._strain(u_e, row, glob)
+        eo = e - row["strain_limit"]
+        pos = eo > 0.0
+        eop = torch.where(pos, eo, torch.zeros_like(eo))
+        E_sl = torch.where(pos, volume * row["strain_limit_stiffness"] * eop ** 3 / 3.0,
+                           torch.zeros_like(eo))
+        l0 = maths.safe_norm(x0[1] - x0[0])
+        e0 = (l0 - row["l_rest"]) / row["l_rest"]
+        E_d = dt * row["strain_damping"] * ((e - e0) / dt) ** 2 / 2.0
+        return E_s + E_sl + E_d
+
+    def _energy_eo(self, u_e, row, glob):
+        return self._strain(u_e, row, glob)[2]
+
+    def _provider(self, name):
+        edges = self._edges[name]
+        if not edges:
+            return None
+        groups = np.asarray(self._groups[name])
+        P = self.params_per_group
+        rows = {
+            "section_radius": np.asarray([P[g].section_radius for g in groups]),
+            "youngs_modulus": np.asarray([P[g].youngs_modulus for g in groups]),
+            "strain_damping": np.asarray([P[g].damping for g in groups]),
+            "strain_limit": np.asarray([min(P[g].strain_limit, 1e30) for g in groups]),
+            "strain_limit_stiffness": np.asarray([P[g].strain_limit_stiffness for g in groups]),
+        }
+        conn = np.asarray(edges, dtype=np.int32)
+        X = self.dyn.host_X()
+        scale = np.asarray([P[g].scale for g in groups])
+        rows["l_rest"] = scale * np.linalg.norm(X[conn[:, 0]] - X[conn[:, 1]], axis=1)
+        rows["nodes"] = conn
+        return FamilyData(conn, rows)
+
+    def add(self, set_: PointSetHandler, segments, params: SegmentStrainParams):
+        group = len(self.params_per_group)
+        self.params_per_group.append(params)
+        name = self.NAME_EO if params.elasticity_only else self.NAME
+        for seg in segments:
+            self._edges[name].append(set_.get_global_indices(seg).tolist())
+            self._groups[name].append(group)
+        return _HandlerBase(self, group)
+
+    def get_params(self, group):
+        return self.params_per_group[group]
+
+    def set_params(self, group, p: SegmentStrainParams):
+        if p.elasticity_only != self.params_per_group[group].elasticity_only:
+            raise ValueError("elasticity_only cannot be changed")
+        self.params_per_group[group] = p
+        self.stark.mark_dirty(self.NAME)
+        self.stark.mark_dirty(self.NAME_EO)
+
+
+# ============================================================================
 # Triangle strain (2D Neo-Hookean membrane)
 # ============================================================================
 @dataclass
@@ -612,3 +719,144 @@ class EnergyDiscreteShells:
         self.params_per_group[group] = p
         self.stark.mark_dirty(self.NAME)
         self.stark.mark_dirty(self.NAME_FLAT)
+
+
+# ============================================================================
+# Tet strain (Stable Neo-Hookean)
+# ============================================================================
+@dataclass
+class TetStrainParams(FluentParams):
+    elasticity_only: bool = False
+    scale: float = 1.0
+    youngs_modulus: float = 1e6
+    poissons_ratio: float = 0.3
+    damping: float = 0.0
+    strain_limit: float = math.inf
+    strain_limit_stiffness: float = 1e4
+
+
+# kernel S's entries, full and elasticity-only (csrc/egh_tet.cu)
+_TET_READS = [("r", "nodes"), ("r", "DXinv"), ("r", "rest_volume"), ("r", "youngs_modulus"),
+              ("r", "poissons_ratio"), ("r", "strain_damping"), ("r", "strain_limit"),
+              ("r", "strain_limit_stiffness"), ("g", "x0"), ("g", "dt")]
+
+
+def det3(F):
+    """The determinant of a 3x3 by cofactors along the first row (JAX's
+    jnp.linalg.det factors by LU: the same value up to rounding, and the
+    cofactor form's derivatives stay polynomial under torch.func)."""
+    return (F[0, 0] * (F[1, 1] * F[2, 2] - F[1, 2] * F[2, 1])
+            - F[0, 1] * (F[1, 0] * F[2, 2] - F[1, 2] * F[2, 0])
+            + F[0, 2] * (F[1, 0] * F[2, 1] - F[1, 1] * F[2, 0]))
+
+
+class EnergyTetStrain:
+    NAME = "EnergyTetStrain"
+    NAME_EO = "EnergyTetStrain_ElasticityOnly"
+
+    def __init__(self, stark, dyn):
+        self.stark = stark
+        self.dyn = dyn
+        self.params_per_group: list[TetStrainParams] = []
+        self._tets = {self.NAME: [], self.NAME_EO: []}
+        self._groups = {self.NAME: [], self.NAME_EO: []}
+        stark.global_potential.add_potential(
+            PotentialFamily(self.NAME, 4, self._energy_full,
+                            kernel=egh.kernel("egh_tet", "tet", _TET_READS)),
+            lambda: self._provider(self.NAME))
+        stark.global_potential.add_potential(
+            PotentialFamily(self.NAME_EO, 4, self._energy_eo,
+                            kernel=egh.kernel("egh_tet", "tet_eo", _TET_READS)),
+            lambda: self._provider(self.NAME_EO))
+
+    @staticmethod
+    def _snh_density(F1, row):
+        # [Smith et al. 2022] Stable Neo-Hookean, eq. 49 (EnergyTetStrain.cpp:50-62)
+        e, nu = row["youngs_modulus"], row["poissons_ratio"]
+        mu = e / (2.0 * (1.0 + nu))
+        lam = (e * nu) / ((1.0 + nu) * (1.0 - 2.0 * nu))
+        mu_ = 4.0 / 3.0 * mu
+        lam_ = lam + 5.0 / 6.0 * mu
+        detF = det3(F1)
+        Ic = torch.sum(F1 * F1)
+        alpha = 1.0 + mu_ / lam_ - mu_ / (4.0 * lam_)
+        return (0.5 * mu_ * (Ic - 3.0) + 0.5 * lam_ * (detF - alpha) ** 2
+                - 0.5 * mu_ * torch.log(Ic + 1.0))
+
+    @staticmethod
+    def _eye3(like):
+        return torch.eye(3, dtype=like.dtype, device=like.device)
+
+    def _F(self, u_e, row, glob):
+        x0 = glob["x0"][row["nodes"]]
+        x1 = x0 + glob["dt"] * u_e
+        Dx1 = torch.stack([x1[1] - x1[0], x1[2] - x1[0], x1[3] - x1[0]], dim=1)
+        return x0, x1, Dx1 @ row["DXinv"]
+
+    def _energy_full(self, u_e, row, glob):
+        # EnergyTetStrain.cpp:12-78
+        dt = glob["dt"]
+        x0, x1, F1 = self._F(u_e, row, glob)
+        vol = row["rest_volume"]
+        elastic = self._snh_density(F1, row)
+        eye = self._eye3(F1)
+        E1 = 0.5 * (F1.T @ F1 - eye)
+        Dx0 = torch.stack([x0[1] - x0[0], x0[2] - x0[0], x0[3] - x0[0]], dim=1)
+        F0 = Dx0 @ row["DXinv"]
+        E0 = 0.5 * (F0.T @ F0 - eye)
+        dE_dt = (E1 - E0) / dt
+        damping = 0.5 * row["strain_damping"] * torch.sum(dE_dt * dE_dt)
+        # smooth largest-eigenvalue proxy (EnergyTetStrain.cpp:64-77)
+        trE = torch.trace(E1)
+        devE = E1 - (trE / 3.0) * eye
+        dev_norm = maths.safe_sqrt(torch.sum(devE * devE))
+        largest = trE / 3.0 + math.sqrt(2.0 / 3.0) * dev_norm
+        limit = maths.cubic_one_sided(largest - row["strain_limit"],
+                                      row["strain_limit_stiffness"])
+        return vol * (elastic + damping + limit)
+
+    def _energy_eo(self, u_e, row, glob):
+        _, _, F1 = self._F(u_e, row, glob)
+        return row["rest_volume"] * self._snh_density(F1, row)
+
+    def _provider(self, name):
+        tets = self._tets[name]
+        if not tets:
+            return None
+        groups = np.asarray(self._groups[name])
+        P = self.params_per_group
+        conn = np.asarray(tets, dtype=np.int32)
+        X = self.dyn.host_X()
+        scale = np.asarray([P[g].scale for g in groups])
+        Xs = X[conn] * scale[:, None, None]
+        DX = np.stack([Xs[:, 1] - Xs[:, 0], Xs[:, 2] - Xs[:, 0], Xs[:, 3] - Xs[:, 0]], axis=2)
+        rows = {
+            "youngs_modulus": np.asarray([P[g].youngs_modulus for g in groups]),
+            "poissons_ratio": np.asarray([P[g].poissons_ratio for g in groups]),
+            "strain_damping": np.asarray([P[g].damping for g in groups]),
+            "strain_limit": np.asarray([min(P[g].strain_limit, 1e30) for g in groups]),
+            "strain_limit_stiffness": np.asarray([P[g].strain_limit_stiffness for g in groups]),
+            "DXinv": np.linalg.inv(DX),
+            "rest_volume": np.linalg.det(DX) / 6.0,
+            "nodes": conn,
+        }
+        return FamilyData(conn, rows)
+
+    def add(self, set_: PointSetHandler, tets, params: TetStrainParams):
+        group = len(self.params_per_group)
+        self.params_per_group.append(params)
+        name = self.NAME_EO if params.elasticity_only else self.NAME
+        for tet in tets:
+            self._tets[name].append(set_.get_global_indices(tet).tolist())
+            self._groups[name].append(group)
+        return _HandlerBase(self, group)
+
+    def get_params(self, group):
+        return self.params_per_group[group]
+
+    def set_params(self, group, p: TetStrainParams):
+        if p.elasticity_only != self.params_per_group[group].elasticity_only:
+            raise ValueError("elasticity_only cannot be changed")
+        self.params_per_group[group] = p
+        self.stark.mark_dirty(self.NAME)
+        self.stark.mark_dirty(self.NAME_EO)

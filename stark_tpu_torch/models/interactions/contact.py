@@ -174,6 +174,28 @@ class EnergyFrictionalContact:
                 triangles=triangles))
         return h
 
+    def add_edges(self, obj, edges=None, params: ContactParams = None,
+                  vertices=None, point_set_map=None):
+        """A mesh of edges only (rods, nets): edge-edge contact, and its
+        vertices as points against other meshes' triangles; the same
+        signatures as add_triangles."""
+        params = params or ContactParams()
+        edges = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+        empty_tris = np.zeros((0, 3), dtype=np.int64)
+        h = self._new_handler(params)
+        if hasattr(obj, "get_global_index"):
+            pids = (obj.all_global_indices() if point_set_map is None
+                    else obj.get_global_indices(np.asarray(point_set_map)))
+            self.meshes.append(ContactMesh(
+                handler_idx=h.idx, is_rigid=False, point_ids=pids,
+                edges=edges, triangles=empty_tris))
+        else:
+            vertices = np.asarray(vertices, dtype=np.float64).reshape(-1, 3)
+            self.meshes.append(ContactMesh(
+                handler_idx=h.idx, is_rigid=True, rb_idx=obj.get_idx(),
+                local_vertices=vertices, edges=edges, triangles=empty_tris))
+        return h
+
     # ------------------------------------------------------------------
     # setters / getters
     # ------------------------------------------------------------------

@@ -15,7 +15,8 @@ Family table (conn = DOF block indices; see solver/dofs.py):
   contact_pt_rd [vA,wA,t0,t1,t2]  contact_ee_rr [vA,wA,vB,wB]
   contact_pt_rr [vA,wA,vB,wB]
 plus friction_* with the same connectivity and frozen per-pair (T, mu, fn,
-bary or s, t) rows.
+bary or s, t) rows. On the card kernels N (PT barrier), O (EE barrier) and
+Q (friction) compute the families' element derivatives (ops/egh.py).
 """
 from __future__ import annotations
 
@@ -103,7 +104,7 @@ def _pt_barrier(cfg, p, t0, t1, t2, row, glob):
     active = row["active"] > 0.5
     # padded rows: coincident points would give d=0; shift p away
     p = torch.where(active, p, t0 + 1.0)
-    d = nph.point_triangle_distance(p, t0, t1, t2)
+    d = nph.point_triangle_distance(p, t0, t1, t2, projected=True)
     return barrier(d, row["dhat"], glob["contact_k"], cfg["barrier"], active)
 
 
@@ -113,7 +114,8 @@ def _ee_barrier(cfg, ea0, ea1, eb0, eb1, EA0, EA1, EB0, EB1, row, glob):
         [1.0, 0.0, 0.0], dtype=ea0.dtype, device=ea0.device))
     eb1 = torch.where(active, eb1, ea1 + torch.tensor(
         [1.0, 0.0, 1.0], dtype=ea0.dtype, device=ea0.device))
-    d = nph.edge_edge_distance(ea0, ea1, eb0, eb1, parallel_tol=cfg["parallel_tol"])
+    d = nph.edge_edge_distance(ea0, ea1, eb0, eb1, parallel_tol=cfg["parallel_tol"],
+                               projected=True)
     m = nph.edge_edge_mollifier(ea0, ea1, eb0, eb1, EA0, EA1, EB0, EB1)
     return m * barrier(d, row["dhat"], glob["contact_k"], cfg["barrier"], active)
 
@@ -138,6 +140,20 @@ def _contact_reads(stem):
     return [("r", "dhat"), ("g", "contact_k"), ("g", "dt"), ("g", "x0"),
             ("g", "X") if stem.startswith("ee") else None, ("g", "rb_t0"),
             ("g", "rb_q0")] + [None if k is None else ("r", k) for k in _CONTACT_SIDES[stem]]
+
+
+def _friction_reads(stem):
+    """The tables kernel Q's entry for friction_<stem> reads
+    (csrc/egh_friction.cu), in its order: the basis, mu, fn, the anchors
+    (bary, or s and t), the globals, then each rigid side's body and local
+    positions (None for a soft side: its DOF blocks are conn's)."""
+    a_body, a_loc, b_body, b_loc = _CONTACT_SIDES[stem]
+    pt = stem.startswith("pt")
+    rigid = lambda key: None if key is None or not key.startswith("body") else key
+    keys = [rigid(a_body), a_loc, rigid(b_body), b_loc]
+    return ([("r", "T"), ("r", "mu"), ("r", "fn"), ("r", "bary" if pt else "s"),
+             None if pt else ("r", "t"), ("g", "friction_epsv"), ("g", "dt"), ("g", "rb_q0")]
+            + [None if k is None else ("r", k) for k in keys])
 
 
 def make_families(model):
@@ -241,11 +257,21 @@ def make_families(model):
         vb = veb[0] + row["t"] * (veb[1] - veb[0])
         return _fric(row, glob, va, vb)
 
+    def friction_scalars(dtype):
+        # kernel Q's float argument: C1 (else C0), read at every call
+        return (1.0 if cfg["friction"] == "C1" else 0.0,)
+
     def contact(stem, arity, fn):
         # on the card: kernel N (PT) or O (EE)
         return PotentialFamily("contact_" + stem, arity, fn, dynamic=True,
                                kernel=egh.kernel("egh_contact", stem, _contact_reads(stem),
                                                  scalars))
+
+    def friction(stem, arity, fn):
+        # on the card: kernel Q
+        return PotentialFamily("friction_" + stem, arity, fn, dynamic=True,
+                               kernel=egh.kernel("egh_friction", "friction_" + stem,
+                                                 _friction_reads(stem), friction_scalars))
 
     fams = [
         contact("pt_dd", 4, contact_pt_dd),
@@ -255,12 +281,12 @@ def make_families(model):
         contact("ee_dd", 4, contact_ee_dd),
         contact("ee_dr", 4, contact_ee_dr),
         contact("ee_rr", 4, contact_ee_rr),
-        PotentialFamily("friction_pt_dd", 4, friction_pt_dd, dynamic=True),
-        PotentialFamily("friction_pt_dr", 3, friction_pt_dr, dynamic=True),
-        PotentialFamily("friction_pt_rd", 5, friction_pt_rd, dynamic=True),
-        PotentialFamily("friction_pt_rr", 4, friction_pt_rr, dynamic=True),
-        PotentialFamily("friction_ee_dd", 4, friction_ee_dd, dynamic=True),
-        PotentialFamily("friction_ee_dr", 4, friction_ee_dr, dynamic=True),
-        PotentialFamily("friction_ee_rr", 4, friction_ee_rr, dynamic=True),
+        friction("pt_dd", 4, friction_pt_dd),
+        friction("pt_dr", 3, friction_pt_dr),
+        friction("pt_rd", 5, friction_pt_rd),
+        friction("pt_rr", 4, friction_pt_rr),
+        friction("ee_dd", 4, friction_ee_dd),
+        friction("ee_dr", 4, friction_ee_dr),
+        friction("ee_rr", 4, friction_ee_rr),
     ]
     return {f.name: f for f in fams}

@@ -1,12 +1,14 @@
-"""Scene-building presets: surfaces and rigid primitives.
+"""Scene-building presets: lines, surfaces, volumes and rigid primitives.
 
-Port of the surface and rigid-body parts of `stark_tpu/presets/presets.py`:
-`SurfaceParams` (with the Cotton_Fabric material), `add_surface_grid` /
-`add_surface` (registering the surface for contact when
-`settings.simulation.init_frictional_contact` is on), and the rigid
-primitives with analytic inertia (`add_box`, `add_sphere`, `add_cylinder`,
-`add_torus`, `add`). Line and volume presets are ROADMAP Queue 1 P7. Output
-labels are accepted for API parity; mesh output (VTK frames) is P10.
+Port of `stark_tpu/presets/presets.py`: the material bundles `LineParams`
+(Elastic_Rubberband), `SurfaceParams` (Cotton_Fabric) and `VolumeParams`
+(Soft_Rubber); `add_line` / `add_line_as_segments`, `add_surface` /
+`add_surface_grid` and `add_volume` / `add_volume_grid`, each registering
+its mesh for contact when `settings.simulation.init_frictional_contact` is
+on (a volume registers its surface only); and the rigid primitives with
+analytic inertia (`add_box`, `add_sphere`, `add_cylinder`, `add_torus`,
+`add`). Output labels are accepted for API parity; mesh output (VTK
+frames) is P10.
 """
 from __future__ import annotations
 
@@ -17,11 +19,32 @@ import numpy as np
 
 from ..models.deformables.energies import (DiscreteShellsParams,
                                            LumpedInertiaParams,
+                                           SegmentStrainParams, TetStrainParams,
                                            TriangleStrainParams)
 from ..models.interactions.contact import ContactParams
 from ..models.rigidbodies import inertia_tensors as it
 from ..utils import mesh_generators as gen
-from ..utils.mesh_utils import find_edges_from_simplices, rcm_order
+from ..utils.mesh_utils import find_edges_from_simplices, find_surface, rcm_order
+
+
+@dataclass
+class LineParams:
+    inertia: LumpedInertiaParams = field(default_factory=LumpedInertiaParams)
+    strain: SegmentStrainParams = field(default_factory=SegmentStrainParams)
+    contact: ContactParams = field(default_factory=ContactParams)
+
+    @staticmethod
+    def Elastic_Rubberband() -> "LineParams":
+        p = LineParams()
+        p.inertia.density = 0.05
+        p.inertia.damping = 0.1
+        p.strain.elasticity_only = False
+        p.strain.section_radius = 0.002
+        p.strain.youngs_modulus = 1e4
+        p.strain.strain_limit = 0.1
+        p.strain.strain_limit_stiffness = 1e5
+        p.strain.damping = 1e-4
+        return p
 
 
 @dataclass
@@ -50,8 +73,28 @@ class SurfaceParams:
 
 
 @dataclass
+class VolumeParams:
+    inertia: LumpedInertiaParams = field(default_factory=LumpedInertiaParams)
+    strain: TetStrainParams = field(default_factory=TetStrainParams)
+    contact: ContactParams = field(default_factory=ContactParams)
+
+    @staticmethod
+    def Soft_Rubber() -> "VolumeParams":
+        p = VolumeParams()
+        p.inertia.density = 1000.0
+        p.inertia.damping = 0.1
+        p.strain.elasticity_only = False
+        p.strain.youngs_modulus = 1e4
+        p.strain.poissons_ratio = 0.3
+        p.strain.strain_limit = 1.0
+        p.strain.strain_limit_stiffness = 1e2
+        p.strain.damping = 0.0
+        return p
+
+
+@dataclass
 class Handlers:
-    """Returned handler bundle (Surface::Handler)."""
+    """Returned handler bundle (Line/Surface/Volume::Handler)."""
     point_set: object = None
     inertia: object = None
     strain: object = None
@@ -70,6 +113,22 @@ class DeformablesPresets:
     def _contact_on(self) -> bool:
         return self.stark.settings.simulation.init_frictional_contact
 
+    def add_line(self, output_label, vertices, segments, params: LineParams):
+        d = self.deformables
+        point_set = d.point_sets.add(vertices)
+        inertia = d.lumped_inertia.add(point_set, segments, params.inertia)
+        strain = d.segment_strain.add(point_set, segments, params.strain)
+        contact = self.interactions.contact.add_edges(
+            point_set, segments, params.contact) if self._contact_on() else None
+        return Handlers(point_set=point_set, inertia=inertia, strain=strain,
+                        contact=contact, vertices=np.asarray(vertices),
+                        connectivity=np.asarray(segments))
+
+    def add_line_as_segments(self, output_label, begin, end, n_segments,
+                             params: LineParams):
+        V, E = gen.generate_segment_line(begin, end, n_segments)
+        return self.add_line(output_label, V, E, params)
+
     def add_surface(self, output_label, vertices, triangles, params: SurfaceParams):
         d = self.deformables
         point_set = d.point_sets.add(vertices)
@@ -86,6 +145,25 @@ class DeformablesPresets:
     def add_surface_grid(self, output_label, dim, subdivisions, params: SurfaceParams):
         V, T = gen.generate_triangle_grid((0.0, 0.0), dim, subdivisions)
         return self.add_surface(output_label, V, T, params)
+
+    def add_volume(self, output_label, vertices, tets, params: VolumeParams):
+        d = self.deformables
+        surface_triangles, tri_to_tet_map = find_surface(vertices, tets)
+        point_set = d.point_sets.add(vertices)
+        inertia = d.lumped_inertia.add(point_set, tets, params.inertia)
+        strain = d.tet_strain.add(point_set, tets, params.strain)
+        # a tet mesh registers only its surface for contact
+        # (DeformablesPresets.cpp:70-73)
+        contact = self.interactions.contact.add_triangles(
+            point_set, surface_triangles, params.contact,
+            point_set_map=tri_to_tet_map) if self._contact_on() else None
+        return Handlers(point_set=point_set, inertia=inertia, strain=strain,
+                        contact=contact, vertices=np.asarray(vertices),
+                        connectivity=np.asarray(tets))
+
+    def add_volume_grid(self, output_label, dim, subdivisions, params: VolumeParams):
+        V, T = gen.generate_tet_grid((0.0, 0.0, 0.0), dim, subdivisions)
+        return self.add_volume(output_label, V, T, params)
 
 
 @dataclass

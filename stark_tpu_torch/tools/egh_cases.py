@@ -1,14 +1,16 @@
-"""Seeded element tables for the kernel families of kernels M-P (K11): the
+"""Seeded element tables for the kernel families of kernels M-S (K11): the
 inputs `tests/test_torch_egh.py` (CPU, against JAX), `tests/test_torch_cuda.py`
 (card, against the twins) and `chip_smoke.py` (the families no scene of the
 smoke runs) hand to a family's kernel and its twin.
 
 `make_case(name, seed)` gives numpy (glob, u, conn, rows) for one family:
 random elements over N_SOFT soft nodes and N_BODIES rigid bodies, plus the
-ties where the twin's autodiff picks a branch: an undeformed triangle (the
-strain limit's clamped square root), a row with d = dhat exactly (the
-barrier's gap of 0), a touching row (d = 0, the distance's floor), inactive
-rows, rows past dhat and a body at w = 0.
+ties where the twin's autodiff picks a branch: an undeformed triangle or
+tet (the strain limit's clamped square root), a segment of zero length
+(safe_norm's clamp), a row with d = dhat exactly (the barrier's gap of 0),
+a touching row (d = 0, the distance's floor), friction rows at rest (stick)
+and exactly at u = epsu (the slide branch), inactive rows (some with the
+zero tables of capacity padding), rows past dhat and a body at w = 0.
 """
 from __future__ import annotations
 
@@ -81,10 +83,10 @@ def _strain_rows(rng, glob, n):
     e1, e2 = X[:, 1] - X[:, 0], X[:, 2] - X[:, 0]
     DX = np.stack([np.stack([np.sum(u * e1, 1), np.sum(u * e2, 1)], 1),
                    np.stack([np.sum(v * e1, 1), np.sum(v * e2, 1)], 1)], 1)
-    # no limit: 10 (float32's twin turns 1e30, the providers' "inf", into
-    # NaN derivatives through its unselected cubic branch)
     lim = np.where(rng.random(n) < 0.5, 0.01, 10.0)
     lim[0] = 0.0                   # the undeformed row meets the limit's kink
+    # (10 for no limit: the float32 twin read 1e30, the providers' "inf",
+    # as NaN derivatives before maths.cubic_one_sided's double where)
     return nodes, {
         "nodes": nodes, "DXinv": np.linalg.inv(DX),
         "rest_area": 0.5 * np.linalg.norm(np.cross(X[:, 0] - X[:, 2], X[:, 1] - X[:, 2]), axis=1),
@@ -139,12 +141,129 @@ def _contact_rows(rng, glob, stem, n):
     return np.stack(conn, 1), rows
 
 
-def _family_data(name, rng, glob):
+def _segment_rows(rng, glob, n):
+    """Rods: random segments, an undeformed one (row 0, at the limit's
+    kink) and one of zero length (row 1: safe_norm's clamp)."""
+    nodes = _soft(rng, n, 2)
+    nodes[0], nodes[1] = [1, 2], [9, 10]
+    glob["x0"][10] = glob["x0"][9]
+    X = glob["x0"][nodes]
+    l_rest = np.linalg.norm(X[:, 0] - X[:, 1], axis=1)
+    l_rest[1] = 0.05
+    lim = np.where(rng.random(n) < 0.5, 0.01, 10.0)
+    lim[0] = 0.0
+    return nodes, {
+        "nodes": nodes, "l_rest": l_rest, "section_radius": rng.uniform(1e-3, 5e-3, n),
+        "youngs_modulus": rng.uniform(1e3, 1e6, n), "strain_damping": rng.uniform(0.0, 1.0, n),
+        "strain_limit": lim, "strain_limit_stiffness": rng.uniform(1e3, 1e5, n)}
+
+
+def _tet_rows(rng, glob, n):
+    """Tets over well-shaped node quadruples (rest = x0, so F = I where u
+    = 0), row 0 at rest and compressed uniformly, F = I / 1.05 (dev E = 0
+    to rounding: safe_sqrt's clamp; at F = I itself the elastic gradient
+    is rounding noise, as the Stable Neo-Hookean rest state cancels)."""
+    x0 = glob["x0"]
+    nodes = [[0, 1, 2, 3]]
+    while len(nodes) < n:
+        q = _soft(rng, 1, 4)[0]
+        D = np.stack([x0[q[k]] - x0[q[0]] for k in (1, 2, 3)], axis=1)
+        edges = np.linalg.norm(D, axis=0)
+        if abs(np.linalg.det(D)) > 0.05 * np.prod(edges):
+            nodes.append(q.tolist())
+    nodes = np.asarray(nodes)
+    X = x0[nodes]
+    DX = np.stack([X[:, 1] - X[:, 0], X[:, 2] - X[:, 0], X[:, 3] - X[:, 0]], axis=2)
+    lim = np.where(rng.random(n) < 0.5, 0.01, 10.0)
+    DXinv = np.linalg.inv(DX)
+    DXinv[0] /= 1.05
+    return nodes, {
+        "nodes": nodes, "DXinv": DXinv, "rest_volume": np.linalg.det(DX) / 6.0,
+        "youngs_modulus": rng.uniform(1e3, 1e5, n), "poissons_ratio": rng.uniform(0.1, 0.45, n),
+        "strain_damping": rng.uniform(0.0, 1.0, n), "strain_limit": lim,
+        "strain_limit_stiffness": rng.uniform(1e2, 1e4, n)}
+
+
+def _friction_tie(glob, u):
+    """Node 9's velocity and friction_epsv such that a row between node 9
+    and nodes at rest, with T = [[1, 0, 0], [0, 1, 0]], has u = |ut| =
+    epsu exactly in float64: ut_1 cancels the perturbation to 0, and dt
+    epsv rounds to ut_0 (every operation of the twin and the kernel on it
+    exact or one rounding alike)."""
+    dt = float(glob["dt"])
+    p0, p1 = 1.13 * 1e-9, -1.07 * 1e-9
+    vy = -p1 / dt
+    for _ in range(64):
+        if vy * dt == -p1:
+            break
+        vy = np.nextafter(vy, np.inf if vy * dt < -p1 else -np.inf)
+    assert vy * dt == -p1
+    for a in np.linspace(0.4, 0.8, 41):
+        ut0 = a * dt + p0
+        epsv = ut0 / dt
+        for k in range(-8, 9):
+            e = epsv + k * np.spacing(epsv)
+            if dt * e == ut0:
+                # the row's vrel = 0 - u9
+                u[9] = [-a, -vy, 0.0]
+                glob["friction_epsv"] = np.asarray(e)
+                return
+    raise AssertionError("no exact friction tie")
+
+
+def _friction_rows(rng, glob, u, stem, n):
+    """Rows of friction_<stem>: the sides of contact_<stem>'s rows with a
+    frozen orthonormal tangent basis T, mu, fn and anchors (bary, or s and
+    t); for the soft-soft families a stick row at rest (row 1) and the
+    exact u = epsu tie (row 0); inactive rows, two of them zeroed as the
+    capacity padding leaves them."""
+    conn, rows = _contact_rows(rng, glob, stem, n)
+    del rows["dhat"]
+    if stem.endswith("rr"):
+        # two bodies: a body does not rub itself (the same body on both
+        # sides at w = 0 leaves vb - va at rounding noise, a gradient of
+        # the perturbation's size that any rounding moves by 1e-9 of itself)
+        rows["body_b"] = (rows["body_a"] + 1 + rng.integers(0, N_BODIES - 1, n)) % N_BODIES
+        conn = np.stack(list(_vw(rows["body_a"])) + list(_vw(rows["body_b"])), 1)
+    _friction_tie(glob, u)
+    a = rng.normal(size=(n, 3))
+    b = rng.normal(size=(n, 3))
+    t0 = _unit(a)
+    t1 = _unit(b - np.sum(b * t0, axis=1, keepdims=True) * t0)
+    rows["T"] = np.stack([t0, t1], axis=1)
+    rows["mu"] = rng.uniform(0.1, 1.0, n)
+    rows["fn"] = rng.uniform(0.1, 10.0, n)
+    if stem.startswith("pt"):
+        bary = rng.uniform(0.05, 1.0, (n, 3))
+        rows["bary"] = bary / bary.sum(axis=1, keepdims=True)
+    else:
+        rows["s"], rows["t"] = rng.uniform(0.0, 1.0, n), rng.uniform(0.0, 1.0, n)
+    if stem in ("pt_dd", "ee_dd"):
+        rows["nodes"][0], rows["nodes"][1] = [9, 10, 11, 0], [1, 2, 3, 4]
+        conn = rows["nodes"]
+        rows["T"][0] = [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0]]
+        if stem == "pt_dd":
+            rows["bary"][0] = [0.2, 0.3, 0.5]
+        else:
+            rows["s"][0], rows["t"][0] = 0.0, 0.5
+    rows["active"][n - 2:] = 0.0
+    for k in ("T", "mu", "fn"):
+        rows[k][n - 2:] = 0.0
+    return conn, rows
+
+
+def _family_data(name, rng, glob, u):
     n = N_ROWS
     if name.startswith("contact_"):
         conn, rows = _contact_rows(rng, glob, name[len("contact_"):], n)
         return conn, rows
-    if name.startswith("EnergyTriangleStrain"):
+    if name.startswith("friction_"):
+        return _friction_rows(rng, glob, u, name[len("friction_"):], n)
+    if name.startswith("EnergySegmentStrain"):
+        conn, rows = _segment_rows(rng, glob, n)
+    elif name.startswith("EnergyTetStrain"):
+        conn, rows = _tet_rows(rng, glob, n)
+    elif name.startswith("EnergyTriangleStrain"):
         conn, rows = _strain_rows(rng, glob, n)
     elif name == "EnergyLumpedInertia":
         node = rng.integers(0, N_SOFT, n)
@@ -195,7 +314,7 @@ def make_case(name: str, seed: int):
     """numpy (glob, u, conn, rows) of family `name` (its registry name)."""
     rng = np.random.default_rng(seed)
     glob, u = _state(rng)
-    conn, rows = _family_data(name, rng, glob)
+    conn, rows = _family_data(name, rng, glob, u)
     return glob, u, conn, rows
 
 
@@ -216,12 +335,16 @@ KERNEL_FAMILIES = (
     "EnergyPrescribedPositions", "EnergyBendingFlat", "EnergyRigidBodyInertia_Linear",
     "EnergyRigidBodyInertia_Angular", "rb_constraint_global_points",
     "rb_constraint_global_directions", "contact_pt_dd", "contact_pt_dr", "contact_pt_rd",
-    "contact_pt_rr", "contact_ee_dd", "contact_ee_dr", "contact_ee_rr")
+    "contact_pt_rr", "contact_ee_dd", "contact_ee_dr", "contact_ee_rr",
+    "EnergySegmentStrain", "EnergySegmentStrain_ElasticityOnly", "EnergyTetStrain",
+    "EnergyTetStrain_ElasticityOnly", "friction_pt_dd", "friction_pt_dr", "friction_pt_rd",
+    "friction_pt_rr", "friction_ee_dd", "friction_ee_dr", "friction_ee_rr")
 
 
-def port_families(barrier: str = "Cubic"):
+def port_families(barrier: str = "Cubic", friction: str = "C0"):
     """The port's registered families by name (a CPU Simulation; their
-    kernel launchers take tensors on any card)."""
+    kernel launchers take tensors on any card), with the barrier and
+    friction types set."""
     from stark_tpu_torch import Settings, Simulation
 
     s = Settings()
@@ -229,24 +352,31 @@ def port_families(barrier: str = "Cubic"):
     s.device.device = "cpu"
     sim = Simulation(s)
     sim.interactions.contact.ipc_barrier_type = barrier
+    sim.interactions.contact.ipc_friction_type = friction
     return {f.name: f for f in sim.stark.global_potential.families}
 
 
-def f64_spread(energy_fn, u64, conn, rows64, glob64, draws: int = 3, seed: int = 0):
+def f64_spread(energy_fn, u64, conn, rows64, glob64, draws: int = 3, seed: int = 0,
+               eps: float = float(torch.finfo(torch.float32).eps)):
     """Per element, how far the float64 twin's e, g and H move when the
-    positions and rotations move by what rounding them to float32 alone
-    may do: every soft point and body origin by +-eps32 X (X the largest
-    |coordinate| of x0 and rb_t0), every body's rotation by +-4 eps32
-    radians per axis (its matrix is built from the quaternion in about four
-    roundings per entry); random signs, `draws` draws, the largest move
-    kept. The DOF blocks are the soft nodes', then each body's v and w.
-    Returns (e, g, H) spreads, each (E,)."""
+    positions and rotations move by what rounding them alone may do at
+    relative precision `eps` (float32's by default): every soft point and
+    body origin by +-eps X (X the largest |coordinate| of a point: of x0,
+    and of a body's origin plus its farthest local point in the rows),
+    every body's rotation by +-4 eps radians per axis (its matrix is built
+    from the quaternion in about four roundings per entry); random signs,
+    `draws` draws, the largest move kept. The DOF blocks are the soft
+    nodes', then each body's v and w. Returns (e, g, H) spreads, each (E,)."""
     from ..ops import egh
 
-    eps = torch.finfo(torch.float32).eps
     dt = float(glob64["dt"])
-    X = max([float(glob64[k].abs().max()) for k in ("x0", "rb_t0")
-             if k in glob64 and glob64[k].numel()] or [1.0])
+    x0 = glob64.get("x0")
+    X = float(x0.abs().max()) if x0 is not None and x0.numel() else 0.0
+    if "rb_t0" in glob64 and glob64["rb_t0"].numel():
+        locs = [float(v.abs().max()) for k, v in rows64.items()
+                if k.endswith("_loc") and v.numel()]
+        X = max(X, float(glob64["rb_t0"].abs().max()) + max(locs, default=0.0))
+    X = X or 1.0
     step = torch.full((u64.shape[0], 1), eps * X / dt, dtype=u64.dtype, device=u64.device)
     if "rb_q0" in glob64:
         n_soft = u64.shape[0] - 2 * glob64["rb_q0"].shape[0]

@@ -220,7 +220,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item; the
-    rigid bodies (P2), contact (P3) and friction (P4) are ported."""
+    rigid bodies (P2), contact (P3), friction (P4) and the rods and volumes
+    (P7) are ported."""
     contact_on = stark_tpu_torch.Settings()
     contact_on.device.device = "cpu"
     assert contact_on.simulation.init_frictional_contact
@@ -234,8 +235,10 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="P6"):
         sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
     sim = stark_tpu_torch.Simulation(_settings(stark_tpu_torch, cpu=True))
-    with pytest.raises(NotImplementedError, match="P7"):
-        sim.deformables.tet_strain
+    assert sim.deformables.tet_strain is not None
+    assert sim.deformables.segment_strain is not None
+    with pytest.raises(NotImplementedError, match="P10"):
+        sim.deformables.output
 
 
 def test_mesh_tables_match_jax():

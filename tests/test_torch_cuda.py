@@ -1,4 +1,4 @@
-"""Kernels A-P (and the staged solver's sites: B [staged], A [direct], I's
+"""Kernels A-S (and the staged solver's sites: B [staged], A [direct], I's
 contact mode) on a CUDA card against their plain twins, and small scenes on
 the card against the port on the CPU.
 
@@ -656,6 +656,111 @@ def test_friction_box_on_card_tracks_the_cpu_port(dev):
     assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6
 
 
+def _soft_boxes(device, sweeps: int, steps: int = 4):
+    """deformable_and_rigid_collisions at n1 = 2, n2 = 1, mu = 1, f64, for
+    `steps` steps with kernel C's Jacobi (or its twin) at `sweeps`:
+    (positions of both boxes, solver codes, Newton counts, friction counts
+    per step)."""
+    from stark_tpu_torch.tools.scenes import deformable_and_rigid_collisions
+
+    sim, (h1, h2, _floor) = deformable_and_rigid_collisions("float64", device, 2, 1)
+    sim.stark.settings.device.jacobi_sweeps = sweeps
+    fric = []
+    for _ in range(steps):
+        assert sim.run_one_time_step()
+        fric.append({k: v for k, v in sim.stark.newton._last_counts.items()
+                     if k.startswith("f_")})
+    lg = sim.get_logger()
+    x = np.concatenate([h1.point_set.get_positions(), h2.point_set.get_positions()])
+    return x, lg.series["solver_code"], lg.series["newton_iterations"], fric
+
+
+def test_soft_boxes_on_card_track_the_cpu_port(dev):
+    """Four f64 steps of deformable_and_rigid_collisions at n1 = 2, n2 = 1,
+    mu = 1 (kernels S, Q, N, O, P and A-J) on the card against the same
+    port on the CPU: the same solver codes, Newton counts and friction
+    counts, and close positions; no family ran torch.func on the card.
+    Both run kernel C's Jacobi (and its twin) with 16 sweeps: the 8 of the
+    card's default (JAX's accelerator default) leave the tets' 12x12
+    projections of this scene unconverged, 42 Newton iterations at step 0
+    against 9 (ROADMAP Queue 3; the next test runs them), and the CPU's
+    default is the exact eigh."""
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu, fric_gpu = _soft_boxes("cuda", 16)
+    for k in ("egh_tet[tet]", "egh_friction[friction_pt_dr]", "egh_friction[friction_ee_dr]"):
+        assert build.launches[k] > 0, k
+    assert not build.func_on_card, dict(build.func_on_card)
+    x_cpu, codes_cpu, newton_cpu, fric_cpu = _soft_boxes("cpu", 16)
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert fric_gpu == fric_cpu and fric_cpu[-1]["f_pt"] > 0
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-8
+
+
+def test_soft_boxes_on_card_at_8_sweeps_track_the_cpu_port(dev):
+    """The previous test's soft boxes at the card's default of 8 Jacobi
+    sweeps, the setting phases 18 and 19 run, on both sides: the same
+    solver codes, Newton counts (printed per step) and friction counts, and
+    positions within 1e-6 m, the scene-parity bound of PERF.md section 2.
+    The 16-sweep test holds 1e-8 m; 8 sweeps leave the tets' projections
+    unconverged, so each Newton step carries its inputs' rounding, and the
+    card's and the CPU twin's converged states part by more (4.2e-8 m on an
+    H100; ROADMAP Queue 3 item 4)."""
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu, fric_gpu = _soft_boxes("cuda", 8)
+    assert build.launches["pd_project"] > 0 and not build.func_on_card
+    x_cpu, codes_cpu, newton_cpu, fric_cpu = _soft_boxes("cpu", 8)
+    dev_m = float(np.max(np.abs(x_gpu - x_cpu)))
+    print(f"8 sweeps: Newton per step card {newton_gpu}, CPU {newton_cpu}; "
+          f"positions within {dev_m:.3e} m")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu and fric_gpu == fric_cpu
+    assert dev_m < 1e-6
+
+
+def test_hanging_rod_and_net_on_card_track_the_cpu_port(dev):
+    """Kernels R (and P, A-D): tests/test_newton_cloth.py's hanging rod for
+    0.2 s and a 6x6 hanging_net for 3 steps, f64, on the card against the
+    port on the CPU: the same codes and Newton counts, positions within
+    1e-8 m."""
+    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch.models.deformables.energies import PrescribedPositionsParams
+    from stark_tpu_torch.presets.presets import LineParams
+    from stark_tpu_torch.tools.scenes import hanging_net
+
+    def rod(device):
+        s = Settings()
+        s.output.enable_output = False
+        s.simulation.init_frictional_contact = False
+        s.simulation.max_time_step_size = 1 / 60
+        s.device.device = device
+        sim = Simulation(s)
+        h = sim.presets.deformables.add_line_as_segments(
+            "", (0, 0, 0), (0, 0, -0.3), 10, LineParams.Elastic_Rubberband())
+        sim.deformables.prescribed_positions.add(h.point_set, [0],
+                                                 PrescribedPositionsParams())
+        return sim, h, 12
+
+    def net(device):
+        sim, h = hanging_net("float64", device, n=6)
+        return sim, h, 3
+
+    for make in (rod, net):
+        out = []
+        for device in ("cuda", "cpu"):
+            build.reset_launches()
+            sim, h, steps = make(device)
+            for _ in range(steps):
+                assert sim.run_one_time_step()
+            if device == "cuda":
+                assert build.launches["egh_rod[segment]"] > 0
+                assert not build.func_on_card
+            lg = sim.get_logger()
+            out.append((h.point_set.get_positions(), lg.series["solver_code"],
+                        lg.series["newton_iterations"]))
+        (xg, cg, ng), (xc, cc, nc) = out
+        assert cg == cc and ng == nc
+        assert np.max(np.abs(xg - xc)) < 1e-8
+
+
 def _staged_cloth(device, mode="ProjectedNewton", solver="BDPCG", n=6, squeeze=1.0):
     """A 6x6 hanging cloth, f64, on the staged solver's configuration;
     squeeze < 1 scales its x-coordinates after pinning, so the compressed
@@ -836,10 +941,13 @@ def test_staged_friction_box_on_card_tracks_the_cpu_port(dev, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# kernels M-P: element energies, gradients and Hessians (K11)
+# kernels M-S: element energies, gradients and Hessians (K11)
 # ---------------------------------------------------------------------------
-EGH_CASES = [(n, "Cubic") for n in ec.KERNEL_FAMILIES] + \
-    [(n, "Log") for n in ec.KERNEL_FAMILIES if n.startswith("contact_")]
+# the barrier (Cubic, Log) of the contact families, the friction type (C0,
+# C1) of kernel Q's
+EGH_CASES = [(n, "Cubic") for n in ec.KERNEL_FAMILIES if not n.startswith("friction_")] + \
+    [(n, "Log") for n in ec.KERNEL_FAMILIES if n.startswith("contact_")] + \
+    [(n, m) for m in ("C0", "C1") for n in ec.KERNEL_FAMILIES if n.startswith("friction_")]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -852,7 +960,8 @@ def test_egh_kernels_match_twin(dev, dtype, name, barrier):
     by element, tools/egh_cases.f32_ratio); the value-only e bit for bit the derivative form's;
     H symmetric, inactive rows zero; one launch counted per call."""
     case = ec.make_case(name, sum(map(ord, name + barrier)))
-    fam = ec.port_families(barrier)[name]
+    fam = ec.port_families(*(("Cubic", barrier) if barrier in ("C0", "C1")
+                             else (barrier,)))[name]
     glob64, u64, conn64, rows64 = ec.to_torch(*case)
     ref = egh.plain(fam.energy_fn, u64, conn64, rows64, glob64)
     spread = ec.f64_spread(fam.energy_fn, u64, conn64, rows64, glob64)

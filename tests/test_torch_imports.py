@@ -1,7 +1,7 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
 `chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`, and
-every module of the contact, staged-solver and element-derivative slices
-imports without a card or nvcc."""
+every module of the contact, staged-solver, element-derivative and
+rods-and-volumes slices imports without a card or nvcc."""
 import ast
 import importlib
 import os
@@ -81,7 +81,7 @@ STAGED_SLICE = [
 ]
 
 
-# the element-derivative slice: kernels M-P's launcher and twin, the
+# the element-derivative slice: kernels M-S's launcher and twin, the
 # models that register their families' tables with it, and the seeded
 # tables their checks use
 EGH_SLICE = [
@@ -94,6 +94,19 @@ EGH_SLICE = [
 ]
 
 
+# the rods-and-volumes slice: the deformables aggregate and presets that
+# register segment and tet strain (kernels R, S), the friction kernel Q's
+# families, and the scene builders and finite-difference check of its tests
+VOLUME_SLICE = [
+    "stark_tpu_torch.models.deformables.deformables",
+    "stark_tpu_torch.presets.presets",
+    "stark_tpu_torch.tools.scenes",
+    "stark_tpu_torch.tools.fd_check",
+    "stark_tpu_torch.utils.mesh_utils",
+    "stark_tpu_torch.utils.mesh_generators",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
@@ -102,9 +115,10 @@ def test_port_has_files():
     assert set(CONTACT_SLICE) <= names
     assert set(STAGED_SLICE) <= names
     assert set(EGH_SLICE) <= names
+    assert set(VOLUME_SLICE) <= names
 
 
-@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE)
+@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE + VOLUME_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""
