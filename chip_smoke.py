@@ -68,28 +68,31 @@ Phases (every failure propagates; nothing is caught):
      the library Cholesky), ProjectOnDemand and Progressive, the same cloth
      squeezed to a third of its width under Progressive (the projection
      ladder escalates: kernel C with its selective mask), and
-     tests/test_rb_constraints.py's global_point scene on DirectLLT at 2 ms
-     for 50 steps;
+     tests/test_rb_constraints.py's global_point scene and a hinge (kernels
+     T and U) on DirectLLT at 2 ms for 50 steps;
  16. hold kernel B at its staged site and the K16 lists (exactly) against
      their twins in f32 and f64 at phase 14's final state, and the whole
      contact refresh against the engine's twin path; kernel A's direct site
      on phase 15's DirectLLT input; time them and the Cholesky (phases 14
      and 16 run in a child process, `chip_smoke.py --staged OUT`, started
      with phase 9's);
- 17. kernels M-S, the element energies, gradients and Hessians: phases 4,
-     7, 10, 12, 14 and 18-20 assert that every family of their path
+ 17. kernels M-V, the element energies, gradients and Hessians: phases 4,
+     7, 10, 12, 14 and 18-22 assert that every family of their path
      launched its kernel (e, g, H and the value-only form) and that no
      family ran torch.func on the card; at phase 4's, 7's, 10's, 12's,
-     18's and 19's states (10, 12, 18 and 19 in their processes) each
+     18's, 19's, 21's and 22's states (10, 12 and 18-22 in their processes) each
      family's kernel is held against its torch.func twin on the card, f64
-     within 1e-10 of each element's largest entry and f32 by
-     tools/egh_cases.f32_ratio, the value-only e bit for bit the egh e,
+     within 1e-10 of each element's largest entry (full shells' rows near
+     flat edges, whose twin moves farther under f64 rounding of the
+     positions: within twice that move, tools/egh_cases.f64_ratio) and f32
+     by tools/egh_cases.f32_ratio, the value-only e bit for bit the egh e,
      and energy_grad_hess's E bit for bit energy()'s in f32 and f64; the
      families no scene runs, and kernel Q under C0 and C1, on seeded
      tables; then, on the idle card, each family's kernel and twin are
      timed (R and S at phase 18's state, Q at phase 19's, Q's families
-     that only phase 10 fills on seeded tables), and energy_grad_hess and
-     energy() whole with the kernels and with the twins;
+     that only phase 10 fills on seeded tables, T and U at phase 21's and
+     the joint chain's, V at the full-shell cloth's), and energy_grad_hess
+     and energy() whole with the kernels and with the twins;
  18. run upstream's hanging_box_with_composite_material at n = 10 (1,331
      nodes, 5,000 tets, surface membrane and flat shells, 120 rods on its
      sharp edges; kernels S, R, M, P and A-D) in float32 for 0.25
@@ -104,7 +107,21 @@ Phases (every failure propagates; nothing is caught):
      boundary pinned; kernels R, P and A-D) in float32 for 0.25 simulated
      seconds: finite, sagging, every kernel launched (phases 18-20 and
      their phase-17 part run in a child process, `chip_smoke.py --volumes
-     OUT`, started with phase 9's).
+     OUT`, started with phase 9's);
+ 21. run upstream's simple_grasp at its sizes (a fixed hand, two fingers on
+     prismatic presses at +-1 m/s and 5 N, a Soft_Rubber cube of 216 nodes
+     and 625 tets, mu 1.05; kernels T, U, S, Q, N, O, P, E-J and A-D) in
+     float32 through Simulation.run for 0.3 simulated seconds: finite, the
+     fingers closed on the cube (live finger pairs and friction rows),
+     no intersection, each press's velocity violation and force from its
+     handler, every kernel launched, torch.func nowhere on the card;
+ 22. run tests/test_rb_constraints.py's ten joint scenes in float64 on the
+     fused path (tools/rb_scenes.py), each with its force balance;
+     tools/scenes.rigid_joint_chain (every joint family) in float32 for 0.3
+     s; and the 32x32 hanging cloth with full DiscreteShells (kernel V) in
+     float32 for 6 steps: finite, sagging, pins held (phases 21-22 and their
+     phase-17 part run in a child process, `chip_smoke.py --joints OUT`,
+     started with phase 9's).
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -162,7 +179,10 @@ def nbytes(*ts) -> int:
 # ---------------------------------------------------------------------------
 # scenes
 # ---------------------------------------------------------------------------
-def make_cloth(n: int, size: float, dtype: str, **sim_kw):
+def make_cloth(n: int, size: float, dtype: str, flat_shells: bool = True, **sim_kw):
+    """An n x n Cotton_Fabric cloth of side `size` on DEVICE (full
+    DiscreteShells, kernel V, with flat_shells off): (sim, handler,
+    PrescribedPositionsParams)."""
     from stark_tpu_torch import Settings, Simulation
     from stark_tpu_torch.models.deformables.energies import PrescribedPositionsParams
     from stark_tpu_torch.presets.presets import SurfaceParams
@@ -177,8 +197,9 @@ def make_cloth(n: int, size: float, dtype: str, **sim_kw):
     for k, v in sim_kw.items():
         setattr(s.simulation, k, v)
     sim = Simulation(s)
-    h = sim.presets.deformables.add_surface_grid(
-        "cloth", (size, size), (n, n), SurfaceParams.Cotton_Fabric())
+    params = SurfaceParams.Cotton_Fabric()
+    params.bending.flat_rest_angle = flat_shells
+    h = sim.presets.deformables.add_surface_grid("cloth", (size, size), (n, n), params)
     return sim, h, PrescribedPositionsParams
 
 
@@ -710,27 +731,33 @@ def run_spinning_box(sim, spin_steps):
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     launches = dict(build.launches, **func_launches())
+    return launches, bench_fields(sim, (t0, t_warm, t1), warm_newton, count_max, live, fric)
+
+
+def bench_fields(sim, times, warm_newton, count_max, live, fric) -> dict:
+    """bench.py's fields of a run: times (start, end of the first step,
+    end), the Newton count at the end of the first step, the counts' maxima
+    and the live pairs and friction rows per step."""
+    t0, t_warm, t1 = times
+    logger = sim.get_logger()
     newton = int(logger.get_stats("newton_iterations").total)
-    cg = int(logger.get_stats("cg_iterations").total)
-    syncs = int(logger.get_stats("host_syncs").total)
     steps = sim.stark.current_time_step
     warm = newton - warm_newton
-    fields = {
+    return {
         "newton_iters_per_s": warm / (t1 - t_warm) if t1 > t_warm else 0.0,
         "ms_per_newton_iter": 1e3 * (t1 - t_warm) / max(warm, 1),
-        "cg_per_newton": cg / max(newton, 1),
+        "cg_per_newton": int(logger.get_stats("cg_iterations").total) / max(newton, 1),
         "broad_rebuilds": int(logger.get_stats("broad_rebuilds").total),
         "pair_rebuilds": int(logger.get_stats("pair_rebuilds").total),
         "fused_retraces": int(logger.get_int("fused_retraces")),
         "count_max": dict(sorted(count_max.items())),
         "live_pairs_last": live[-1], "live_pairs_max": max(live),
         "friction_rows_last": fric[-1], "friction_rows_max": max(fric),
-        "host_syncs_per_step": syncs / max(steps, 1),
+        "host_syncs_per_step": int(logger.get_stats("host_syncs").total) / max(steps, 1),
         "steps": steps, "sim_seconds": sim.get_time(), "newton_iters": newton,
         "wall_s": t1 - t0, "first_step_s": t_warm - t0,
         "solver_codes": [int(c) for c in logger.series["solver_code"]],
     }
-    return launches, fields
 
 
 def intersects_now(sim) -> bool:
@@ -1587,6 +1614,8 @@ def staged_configurations(size):
         runs[label] = run
     log("  rigid global_point on DirectLLT, 2 ms")
     runs["rigid_global_point"] = rigid_global_point()
+    log("  rigid hinge on DirectLLT, 2 ms")
+    runs["rigid_hinge"] = rigid_hinge()
     return launches_direct, runs, sim_direct
 
 
@@ -1594,26 +1623,13 @@ def rigid_global_point():
     """tests/test_rb_constraints.py::test_global_point on the card: a box held
     at a point by a global-point constraint under a constant force,
     DirectLLT, 2 ms steps, gravity off, RIGID_STEPS steps."""
-    from stark_tpu_torch import Settings, Simulation
-    from stark_tpu_torch.core.settings import LinearSolver
-    from stark_tpu_torch.models.rigidbodies.inertia_tensors import inertia_tensor_box
+    from stark_tpu_torch import Simulation
+    from stark_tpu_torch.tools import rb_scenes
 
-    rng = np.random.default_rng(1234)
-    mass = float(rng.uniform(0.0, 100.0))
-    force = float(rng.uniform(0.0, 100.0)) + 10.0
-    s = Settings()
-    s.output.enable_output = False
-    s.output.enable_frame_writes = False
-    s.device.device = DEVICE
-    s.simulation.gravity = (0.0, 0.0, 0.0)
-    s.simulation.init_frictional_contact = False
-    s.simulation.max_time_step_size = 0.002
-    s.newton.linear_solver = LinearSolver.DirectLLT
-    s.newton.residual_tolerance_abs = 1e-6
-    s.newton.step_tolerance = 0.0
-    sim = Simulation(s)
-    box = sim.rigidbodies.add(mass, inertia_tensor_box(mass, (0.1, 0.1, 0.1)))
+    sim = Simulation(rb_scenes.settings("global_point", "float64", DEVICE, direct=True))
+    box = rb_scenes.box(sim)
     constraint = sim.rigidbodies.add_constraint_global_point(box, box.get_translation())
+    force = rb_scenes.PERTURBATION
     box.set_force([force, 0, 0])
     launches, run = run_steps(sim, RIGID_STEPS)
     C, f = constraint.get_violation_in_m_and_force()
@@ -1622,6 +1638,29 @@ def rigid_global_point():
     assert np.isfinite(C) and abs(C) < constraint.get_tolerance_in_m()
     assert launches.get("segment_reduce[direct]", 0) > 0
     run.update(violation_m=C, force=f, applied=force)
+    return run
+
+
+def rigid_hinge():
+    """A hinge (a point and a direction: kernels T and U) holding a box
+    under tests/test_rb_constraints.py's perturbation force and a torque as
+    large (tools/rb_scenes.hinge), DirectLLT, 2 ms steps, gravity off,
+    RIGID_STEPS steps: both violations within their tolerances."""
+    from stark_tpu_torch.tools import rb_scenes
+
+    sim, hinge = rb_scenes.hinge("float64", DEVICE, direct=True)
+    launches, run = run_steps(sim, RIGID_STEPS)
+    C, f = hinge.get_point().get_violation_in_m_and_force()
+    A, t = hinge.get_direction_lock().get_violation_in_deg_and_torque()
+    log(f"    point {C:.3e} m (tolerance {hinge.get_point().get_tolerance_in_m():.1e}), "
+        f"force {f:.4f}; direction {A:.3e} deg, torque {t:.4f} of "
+        f"{rb_scenes.PERTURBATION:.4f} (still settling at 0.1 s)")
+    assert np.isfinite(C) and abs(C) < hinge.get_point().get_tolerance_in_m()
+    assert np.isfinite(A) and abs(A) < hinge.get_direction_lock().get_tolerance_in_deg()
+    assert_launched(launches, ("segment_reduce[direct]", "egh_joints[points]",
+                               "egh_joints[directions]"), "the DirectLLT hinge")
+    run.update(point_violation_m=C, force=f, direction_violation_deg=A, torque=t,
+               applied=rb_scenes.PERTURBATION)
     return run
 
 
@@ -2013,6 +2052,239 @@ def volumes_run(out_json: str, go_file: str = None) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phases 21-22: the rigid joints (kernels T, U) and full shells (kernel V)
+# ---------------------------------------------------------------------------
+JOINT_FAMILIES = ("rb_constraint_points", "rb_constraint_point_on_axis",
+                  "rb_constraint_distances", "rb_constraint_distance_limits",
+                  "rb_constraint_directions", "rb_constraint_angle_limits",
+                  "rb_constraint_damped_spring", "rb_constraint_linear_velocity",
+                  "rb_constraint_angular_velocity")
+RIGID_FAMILIES = ("EnergyRigidBodyInertia_Linear", "EnergyRigidBodyInertia_Angular",
+                  "rb_constraint_global_points", "rb_constraint_global_directions")
+# simple_grasp: the cube's tets and inertia, the rigid bodies, the fixed
+# hand and the two prismatic presses (a point on an axis, two directions and
+# a force-capped linear velocity each)
+PRESS_FAMILIES = ("rb_constraint_point_on_axis", "rb_constraint_directions",
+                  "rb_constraint_linear_velocity")
+GRASP_FAMILIES = ("EnergyLumpedInertia", "EnergyTetStrain_ElasticityOnly") + RIGID_FAMILIES \
+    + PRESS_FAMILIES
+CHAIN_FAMILIES = RIGID_FAMILIES + JOINT_FAMILIES
+FULL_CLOTH_FAMILIES = ("EnergyLumpedInertia", "EnergyTriangleStrain", "EnergyDiscreteShells",
+                       "EnergyPrescribedPositions")
+GRASP_SECONDS, CHAIN_SECONDS, FULL_CLOTH_STEPS = 0.3, 0.3, 6
+# the stems of the cube's contact with the fingers (a soft point on a
+# finger's face, a finger's corner on the cube's face, an edge of each)
+GRASP_STEMS = ("pt_dr", "pt_rd", "ee_dr")
+
+
+def run_through_run(sim, seconds: float, where: str):
+    """Step a scene through Simulation.run for `seconds` (its time events
+    fire there), with run_spinning_box's fields from a callback before each
+    step and from the last step; print them. The counts of the kernels are
+    set to 0 just before and read just after."""
+    from stark_tpu_torch.ops import build
+
+    logger = sim.get_logger()
+    count_max, live, fric, marks = {}, [], [], []
+
+    def record():
+        nm = sim.stark.newton
+        if sim.stark.current_time_step > 0:
+            for k, v in nm._last_counts.items():
+                count_max[k] = max(count_max.get(k, 0), int(v))
+            live.append(nm.live_contact_pairs())
+            fric.append(nm.friction_rows())
+
+    def before_step():
+        record()
+        if len(marks) == 1:
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(),
+                          int(logger.get_stats("newton_iterations").total)))
+        elif not marks:
+            marks.append(None)
+
+    build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    assert sim.run(seconds, before_step), f"{where}: a time step failed"
+    record()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = dict(build.launches, **func_launches())
+    launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
+    t_warm, warm_newton = marks[1] if len(marks) > 1 else (t0, 0)
+    fields = bench_fields(sim, (t0, t_warm, t1), warm_newton, count_max, live, fric)
+    fields.update(last_counts={k: int(v) for k, v in sim.stark.newton._last_counts.items()},
+                  fused_eligible=sim.stark.newton._fused_eligible())
+    print(f"{where}: " + json.dumps(fields), flush=True)
+    print(f"launches={launches}", flush=True)
+    return launches, fields
+
+
+def grasp_run():
+    """Phase 21: upstream's simple_grasp at its sizes in f32 through
+    Simulation.run for GRASP_SECONDS, with bench.py's fields and its checks.
+    Returns (sim, launches, fields)."""
+    from stark_tpu_torch.tools.scenes import simple_grasp
+
+    print("-- phase 21", flush=True)
+    sim, (cube, _hand, left, right, press_l, press_r) = simple_grasp("float32", DEVICE)
+    x_rest = cube.point_set.get_positions().copy()
+    gap0 = right.rigidbody.get_translation()[0] - left.rigidbody.get_translation()[0]
+    launches, fields = run_through_run(sim, GRASP_SECONDS, "phase 21")
+    x = cube.point_set.get_positions()
+    gap = right.rigidbody.get_translation()[0] - left.rigidbody.get_translation()[0]
+    presses = {}
+    for label, p in (("left", press_l), ("right", press_r)):
+        presses[label] = p.get_linear_velocity().get_signed_velocity_violation_and_force()
+        poa = p.get_prismatic_slider().get_slider().get_point_on_axis()
+        presses[label + "_axis_m"] = poa.get_violation_in_m_and_force()[0]
+    fields.update(nodes=len(x), finger_gap_m=[gap0, gap],
+                  cube_width_m=float(x[:, 0].max() - x[:, 0].min()),
+                  cube_mean_dz_m=float(np.mean(x[:, 2] - x_rest[:, 2])), presses=presses)
+    print("phase 21 presses: " + json.dumps(presses), flush=True)
+    tets = sim._get_static_data()["EnergyTetStrain_ElasticityOnly"]["rows"]["active"]
+    assert len(x) == 216 and int((tets > 0.5).sum()) == 625, "phase 21: not upstream's sizes"
+    assert np.all(np.isfinite(x)), "phase 21: non-finite positions"
+    stems = {st: fields["last_counts"].get(st, 0) for st in GRASP_STEMS}
+    assert sum(stems.values()) > 0 and fields["live_pairs_last"] > 0 \
+        and fields["friction_rows_last"] > 0, \
+        f"phase 21: the fingers hold no live pairs or friction rows: {stems}"
+    assert gap < gap0 - 0.02, f"phase 21: the fingers did not close: {gap0} -> {gap}"
+    assert fields["cube_width_m"] < 0.2, "phase 21: the cube is not squeezed"
+    assert not intersects_now(sim), "phase 21: the final state intersects"
+    # each finger held back from its +-1 m/s by the cube, at its 5 N cap
+    for label, sign in (("left", -1.0), ("right", 1.0)):
+        dv, f = presses[label]
+        assert np.isfinite(dv) and sign * dv > 0.0 and abs(f) == 5.0, \
+            f"phase 21: {label} press violation {dv}, force {f}"
+        assert presses[label + "_axis_m"] < 1e-3, f"phase 21: {label} left its axis"
+    assert_launched(launches, ("segment_reduce[egh]", "segment_reduce[diag]", "hvp_bucket",
+                               "pd_project") + CONTACT_KERNELS + FRICTION_KERNELS,
+                    "phase 21")
+    assert_egh_path(sim, launches, GRASP_FAMILIES, "phase 21")
+    assert_egh_path(sim, launches, CONTACT_FAMILIES, "phase 21", optional=CONTACT_FAMILIES)
+    assert_egh_path(sim, launches, FRICTION_FAMILIES, "phase 21", optional=FRICTION_FAMILIES)
+    return sim, launches, fields
+
+
+def rb_constraint_scenes() -> dict:
+    """Phase 22a: the ten joint scenes of tests/test_rb_constraints.py on
+    the fused path in f64 (tools/rb_scenes.py: 10 ms for 0.5 s, the
+    distance limits for 1 s), each with its force balance."""
+    from stark_tpu_torch.ops import build
+    from stark_tpu_torch.tools import rb_scenes
+
+    out = {}
+    for name in sorted(rb_scenes.SCENES):
+        build.reset_launches()
+        t0 = time.perf_counter()
+        sim, ok, checks = rb_scenes.run(name, "float64", DEVICE)
+        torch.cuda.synchronize()
+        launches = dict(build.launches, **func_launches())
+        out[name] = {"ok": ok, "checks": [list(c) for c in checks],
+                     "steps": sim.stark.current_time_step,
+                     "newton": int(sim.get_logger().get_stats("newton_iterations").total),
+                     "wall_s": time.perf_counter() - t0,
+                     "fused": sim.stark.newton._fused_eligible()}
+        print(f"  {name}: " + ", ".join(f"{l} {v:.3e} (< {m:g})" for l, v, m in checks)
+              + f"; {out[name]['steps']} steps, {out[name]['newton']} Newton, "
+              f"{out[name]['wall_s']:.1f}s", flush=True)
+        assert ok and out[name]["fused"], f"phase 22 {name}: the run failed"
+        for label, value, limit in checks:
+            assert value < limit, f"phase 22 {name}: {label} {value} over {limit}"
+        fams = [f.name for f in sim.stark.global_potential.families
+                if f.name in JOINT_FAMILIES and f.name in sim._get_static_data()]
+        assert fams, f"phase 22 {name}: no joint family"
+        assert_egh_path(sim, launches, tuple(fams), f"phase 22 {name}")
+    return out
+
+
+def chain_run():
+    """Phase 22b: tools/scenes.rigid_joint_chain (every joint family) in f32
+    for CHAIN_SECONDS. Returns (sim, launches, fields)."""
+    from stark_tpu_torch.tools.scenes import rigid_joint_chain
+
+    sim, bodies = rigid_joint_chain("float32", DEVICE)
+    t_rest = [b.get_translation().copy() for b in bodies]
+    launches, fields = run_scene(sim, CHAIN_SECONDS, "phase 22 chain")
+    moved = [float(np.linalg.norm(b.get_translation() - t)) for b, t in zip(bodies, t_rest)]
+    fields["moved_m"] = moved
+    assert all(np.all(np.isfinite(b.get_translation())) for b in bodies)
+    assert moved[0] < 1e-3 and max(moved[1:]) > 1e-3, f"phase 22 chain: moved {moved}"
+    assert_launched(launches, ("segment_reduce[egh]", "hvp_bucket"), "phase 22 chain")
+    assert_egh_path(sim, launches, CHAIN_FAMILIES, "phase 22 chain")
+    return sim, launches, fields
+
+
+def full_cloth_run():
+    """Phase 22c: the 32x32 hanging cloth with full DiscreteShells (kernel
+    V) in f32 for FULL_CLOTH_STEPS steps: finite, sagging, pins held.
+    Returns (sim, launches, fields)."""
+    size = 0.4
+    sim, h, P = make_cloth(N_DENSE, size, "float32", flat_shells=False)
+    pin_top_corners(sim, h, P, size)
+    x_rest = h.point_set.get_positions().copy()
+    pins = np.asarray(sim.deformables.prescribed_positions._nodes)
+    launches, fields = run_steps(sim, FULL_CLOTH_STEPS)
+    x = h.point_set.get_positions()
+    free = np.setdiff1d(np.arange(len(x)), pins)
+    fields.update(mean_free_z=float(np.mean(x[free, 2])),
+                  pin_deviation=float(np.max(np.linalg.norm(x[pins] - x_rest[pins], axis=1))))
+    print("phase 22 cloth: " + json.dumps(fields), flush=True)
+    assert np.all(np.isfinite(x)), "phase 22 cloth: non-finite positions"
+    assert fields["mean_free_z"] < 0.0, "phase 22 cloth: the cloth does not sag"
+    assert fields["pin_deviation"] < 2e-3, "phase 22 cloth: the pins moved"
+    assert_egh_path(sim, launches, FULL_CLOTH_FAMILIES, "phase 22 cloth")
+    return sim, launches, fields
+
+
+def joints_run(out_json: str, go_file: str = None) -> int:
+    """Phases 21-22, run as `chip_smoke.py --joints OUT_JSON [GO_FILE]`:
+    simple_grasp, the rb_constraints scenes, the joint chain and the
+    full-shell cloth; then phase 17's checks of T, U and V at phase 21's and
+    22's states (kernel against twin, f64 and f32) and, once GO_FILE exists
+    (the other processes are done with the card), their times; writes the
+    fields, launches and records."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # six processes share the host's cores
+    t0 = time.perf_counter()
+    out = {"fields": {}, "launches": {}, "egh": {}}
+    sim21, out["launches"]["phase21"], out["fields"]["phase21"] = grasp_run()
+
+    print("-- phase 22", flush=True)
+    out["fields"]["rb_constraints"] = rb_constraint_scenes()
+    sim22, out["launches"]["chain"], out["fields"]["chain"] = chain_run()
+    sim22c, out["launches"]["cloth"], out["fields"]["cloth"] = full_cloth_run()
+
+    print("-- phase 17 (phases 21 and 22's states)", flush=True)
+    torch.set_num_threads(4)     # the twins' CPU runs
+    out["egh"]["phase21"] = egh_checks(
+        sim21, GRASP_FAMILIES + CONTACT_FAMILIES + FRICTION_FAMILIES, "phase 21", 21)
+    out["egh"]["chain"] = egh_checks(sim22, CHAIN_FAMILIES, "phase 22", 22)
+    out["egh"]["cloth"] = egh_checks(sim22c, FULL_CLOTH_FAMILIES, "phase 22", 23)
+    if go_file:
+        t_wait = time.perf_counter()
+        while not os.path.exists(go_file):
+            assert time.perf_counter() - t_wait < 1200, "no go from the main process"
+            time.sleep(0.5)
+        print(f"waited {time.perf_counter() - t_wait:.1f}s for the card", flush=True)
+    print("-- phase 17 (times)", flush=True)
+    out["times"] = {
+        "phase21": egh_timings(sim21, PRESS_FAMILIES, 21, out["launches"]["phase21"]),
+        "chain": egh_timings(sim22, tuple(n for n in JOINT_FAMILIES
+                                          if n not in PRESS_FAMILIES), 22,
+                             out["launches"]["chain"]),
+        "cloth": egh_timings(sim22c, ("EnergyDiscreteShells",), 23, out["launches"]["cloth"])}
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # on demand, not part of the smoke: `chip_smoke.py --witness` (writes
 # chiprun_out/witness/)
 # ---------------------------------------------------------------------------
@@ -2265,6 +2537,7 @@ OFF_PATH_FAMILIES = ("EnergyTriangleStrain_ElasticityOnly", "contact_pt_rr",
                      "friction_ee_rr")
 _ENERGIES = "stark_tpu/models/deformables/energies.py:"
 _CONTACT = "stark_tpu/models/interactions/contact_energies.py:"
+_JOINTS = "stark_tpu/models/rigidbodies/constraints.py:"
 EGH_REPLACES = {
     "EnergyTriangleStrain": _ENERGIES + "468",
     "EnergyLumpedInertia": _ENERGIES + "88",
@@ -2282,6 +2555,14 @@ EGH_REPLACES = {
     "friction_pt_rd": _CONTACT + "218", "friction_pt_rr": _CONTACT + "223",
     "friction_ee_dd": _CONTACT + "228", "friction_ee_dr": _CONTACT + "233",
     "friction_ee_rr": _CONTACT + "239",
+    "rb_constraint_points": _JOINTS + "231", "rb_constraint_point_on_axis": _JOINTS + "240",
+    "rb_constraint_distances": _JOINTS + "253",
+    "rb_constraint_distance_limits": _JOINTS + "262",
+    "rb_constraint_directions": _JOINTS + "274", "rb_constraint_angle_limits": _JOINTS + "283",
+    "rb_constraint_damped_spring": _JOINTS + "294",
+    "rb_constraint_linear_velocity": _JOINTS + "310",
+    "rb_constraint_angular_velocity": _JOINTS + "318",
+    "EnergyDiscreteShells": _ENERGIES + "581",
 }
 
 
@@ -2359,14 +2640,23 @@ def _f64_err(out, ref, part) -> float:
     return f64_err(out.cpu().numpy(), ref.cpu().numpy(), part)
 
 
+# the family whose twin cannot be reproduced to 1e-10 in float64 at a
+# physical state: full DiscreteShells near flat edges (tools/egh_cases.
+# f64_ratio); every other family is held to 1e-10 on every row
+F64_FLOOR_FAMILIES = ("EnergyDiscreteShells",)
+
+
 def hold_egh(fam, u, conn, rows, glob, what: str) -> dict:
     """One family's kernel against its twin on the card: f64 within 1e-10
-    by tools/egh_cases.f64_err (g and H: of each element's largest entry),
-    f32 within tools/egh_cases.f32_ratio (element by element; the rows held
-    to the float32 floor are counted), the value-only e bit for bit the
-    derivative form's in both."""
+    by tools/egh_cases.f64_err (g and H: of each element's largest entry;
+    for F64_FLOOR_FAMILIES, rows whose twin moves farther under float64
+    rounding of the positions within twice that move, tools/egh_cases.
+    f64_ratio, counted), f32 within tools/egh_cases.f32_ratio (element by
+    element; the rows held to the float32 floor are counted), the
+    value-only e bit for bit the derivative form's in both."""
     from stark_tpu_torch.ops import egh
-    from stark_tpu_torch.tools.egh_cases import f32_ratio, f64_spread
+    from stark_tpu_torch.tools.egh_cases import (dihedral_spread, f32_ratio, f64_ratio,
+                                                 f64_spread)
 
     u64, rows64, glob64 = u.double(), _cast(rows, torch.float64), _cast(glob, torch.float64)
     k64 = fam.kernel(u64, conn, rows64, glob64, True)
@@ -2381,18 +2671,48 @@ def hold_egh(fam, u, conn, rows, glob, what: str) -> dict:
     assert torch.equal(v64, k64[0]) and torch.equal(v32, k32[0]), \
         f"{fam.name} ({what}): the value-only e is not the egh e bit for bit"
     err64 = max(_f64_err(k, t, part) for part, k, t in zip("egH", k64, t64))
+    ratio64, wide64, floor64 = err64 / 1e-10, (0, 0, 0), ""
+    if err64 > 1e-10 and fam.name in F64_FLOOR_FAMILIES:
+        # how far two evaluations of the f64 twin lie apart: under f64
+        # rounding of the positions, under 4 ulps of the dihedral angles'
+        # cosines, and on the CPU against the card
+        spread64 = f64_spread(fam.energy_fn, u64, conn, rows64, glob64, draws=8,
+                              eps=float(torch.finfo(torch.float64).eps))
+        c64 = dihedral_spread(fam.energy_fn, u64, conn, rows64, glob64)
+        on_cpu = egh.plain(fam.energy_fn, u64.cpu(), conn.cpu(),
+                           {k: v.cpu() for k, v in rows64.items()},
+                           {k: v.cpu() for k, v in glob64.items()})
+        parts64, wide64, floors = [], [], []
+        for part, k, t, a, b, c in zip("egH", k64, t64, spread64, c64, on_cpu):
+            n = t.shape[0]
+            apart = (t.cpu() - c).reshape(n, -1).abs().amax(dim=1).double()
+            floor = torch.maximum(torch.maximum(a.cpu(), b.cpu()), apart)
+            r, w = f64_ratio(k.cpu(), t.cpu(), part, floor)
+            parts64.append(r)
+            wide64.append(w)
+            scale = t.cpu().reshape(n, -1).abs().amax(dim=1).double()
+            rel = lambda x: float((x / torch.where(scale > 0, scale, 1.0)).max())
+            floors.append(f"{part} {r:.2f} (spread {rel(a.cpu()):.1e} c {rel(b.cpu()):.1e} "
+                          f"cpu {rel(apart):.1e})")
+        ratio64 = max(parts64)
+        floor64 = " [f64 floor: " + "; ".join(floors) + "]"
     parts32, wide = zip(*[f32_ratio(k, t, r, part, s)
                           for part, k, t, r, s in zip("egH", k32, t32, t64, spread)])
     ratio32 = max(parts32)
     abs32 = max(float((k.double() - t.double()).abs().max()) if k.numel() else 0.0
                 for k, t in zip(k32, t32))
     rows_n, live = conn.shape[0], int((rows["active"] > 0.5).sum())
-    ok = err64 <= 1e-10 and ratio32 <= 1.0
+    ok = ratio64 <= 1.0 and ratio32 <= 1.0
+    if floor64:
+        floor64 = f" (err/tol {ratio64:.3f}, rows by the f64 floor e {wide64[0]} g " \
+            f"{wide64[1]} H {wide64[2]}){floor64}"
     log(f"  {fam.kernel.site:<36} {what:<9} rows={rows_n:<6} live={live:<6} "
-        f"f64 rel err={err64:.2e}  f32 err/tol={ratio32:.3f} "
+        f"f64 rel err={err64:.2e}{floor64}  f32 err/tol={ratio32:.3f} "
         f"(e {parts32[0]:.2f} g {parts32[1]:.2f} H {parts32[2]:.2f}; rows by the "
         f"floor e {wide[0]} g {wide[1]} H {wide[2]})  {'ok' if ok else 'FAIL'}")
     return {"rows": rows_n, "live_rows": live, "f64_rel_err": err64,
+            "f64_err_over_tol": ratio64, "f64_rows_by_floor": list(wide64),
+            "f64_floor": floor64,
             "f32_err_over_tol": ratio32, "f32_rows_by_floor": list(wide),
             "max_abs_err": abs32, "ok": ok}
 
@@ -2477,6 +2797,20 @@ EGH_OPS = {
     "friction_pt_rd": (138, None), "friction_pt_rr": (288, None),
     "friction_ee_dd": (45, None), "friction_ee_dr": (168, None),
     "friction_ee_rr": (291, None),
+    # T: two rigid points (2 x 87), b1 - a1 (3) and the energy: |d|^2 (6),
+    # point on axis with side a's axis (15), the cross and quotient (~25);
+    # the norm (6) and the quadratic (~4), the limits' compares (~8); the
+    # spring's x0 points (2 x ~45) and the damper (~6)
+    "points": (183, None), "point_on_axis": (214, None), "distances": (187, None),
+    "distance_limits": (191, None), "damped_spring": (283, None),
+    # U: two rotated directions (2 x 84) and |db - da|^2 (8), the cube of
+    # the limit (~10); one direction (84), the velocity difference and dot
+    # (8) and the controller (~6)
+    "directions": (176, None), "angle_limits": (186, None),
+    "linear_velocity": (98, None), "angular_velocity": (98, None),
+    # V: x1 (24), the edges (9), two crosses (18), two normalisations (18),
+    # the dot and acos (~12), the same at x0 (~80) and the energy (~12)
+    "shells": (173, None),
 }
 
 
@@ -2600,6 +2934,15 @@ _SPILL_KEYS = {"strain": "9FamStrainILb1EEfLb1E", "lumped": "9FamLumpedfLb1E",
                "ee_dr": "10FamContactILb1ELb1ELb0EEfLb1E",
                "segment": "10FamSegmentILb1EEfLb1E", "segment_eo": "10FamSegmentILb0EEfLb1E",
                "tet": "6FamTetILb1EEfLb1E", "tet_eo": "6FamTetILb0EEfLb1E"}
+_SPILL_KEYS.update({
+    "points": "10FamTwoBodyI6PointsLi6EEfLb1E",
+    "point_on_axis": "10FamTwoBodyI11PointOnAxisLi9EEfLb1E",
+    "distances": "10FamTwoBodyI9DistancesLi6EEfLb1E",
+    "distance_limits": "10FamTwoBodyI14DistanceLimitsLi6EEfLb1E",
+    "damped_spring": "10FamTwoBodyI12DampedSpringLi6EEfLb1E",
+    "directions": "13FamDirectionsILb0EEfLb1E", "angle_limits": "13FamDirectionsILb1EEfLb1E",
+    "linear_velocity": "11FamVelocityILb1EEfLb1E",
+    "angular_velocity": "11FamVelocityILb0EEfLb1E", "shells": "9FamShellsfLb1E"})
 _SPILL_KEYS.update({"friction_" + stem: "11FamFrictionILb%dELb%dELb%dEEfLb1E" % flags
                     for stem, flags in (("pt_dd", (0, 0, 0)), ("pt_dr", (0, 0, 1)),
                                         ("pt_rd", (0, 1, 0)), ("pt_rr", (0, 1, 1)),
@@ -2751,13 +3094,14 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phases 9, 10, 12-13, 14 and 18-20 run beside phases 3-8, each in a process of its own:
+    # phases 9, 10, 12-13, 14, 18-20 and 21-22 run beside phases 3-8, each in a process of its own:
     # the work is host-bound (one Python thread each) and the card mostly idle
     children = [start_child("--golden-sbc16", "golden_sbc16"),
                 start_child("--friction", "friction"),
                 start_child("--scale64", "scale64"),
                 start_child("--staged", "staged", os.path.join(OUT_DIR, "staged.go")),
-                start_child("--volumes", "volumes", os.path.join(OUT_DIR, "volumes.go"))]
+                start_child("--volumes", "volumes", os.path.join(OUT_DIR, "volumes.go")),
+                start_child("--joints", "joints", os.path.join(OUT_DIR, "joints.go"))]
     try:
         return phases_3_to_11(card, t_start, *children)
     finally:
@@ -2769,7 +3113,7 @@ def main() -> int:
 
 
 def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
-                   staged_child, volumes_child) -> int:
+                   staged_child, volumes_child, joints_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -2924,6 +3268,20 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                                 "  ", "waited")):
                 log("  " + line.strip())
     log(f"  {r18['seconds']:.2f}s (beside phases 3-16)")
+    # phases 18-20 are done with the card: phase 17's times at 21's and 22's states
+    open(os.path.join(OUT_DIR, "joints.go"), "w").close()
+
+    # ---- 21-22: the joints and full shells (their own process, started with 9's)
+    log(f"phases 21-22: simple_grasp ({GRASP_SECONDS} s, f32), tests/test_rb_constraints.py's "
+        f"ten joint scenes (f64), rigid_joint_chain ({CHAIN_SECONDS} s, f32), the "
+        f"{N_DENSE}x{N_DENSE} cloth with full shells ({FULL_CLOTH_STEPS} steps, f32); "
+        f"kernels T, U, V against their twins")
+    r21 = finish_child(joints_child, "the joints run")
+    with open(os.path.join(OUT_DIR, "joints.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("phase 21", "phase 22", "launches=", "-- ", "  ", "waited")):
+                log("  " + line.strip())
+    log(f"  {r21['seconds']:.2f}s (beside phases 3-20)")
 
     # ---- 17: kernels M-S, on the idle card (every child is done)
     log("phase 17: kernels M-S against their twins (f64 and f32) at phase 4's, 7's, "
@@ -2932,7 +3290,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     r17 = {"phase4": egh_checks(sim64, CLOTH_FAMILIES, "phase 4", 4),
            "phase7": egh_checks(sbc, BOX_FAMILIES, "phase 7", 7),
            "phase10": r10["egh"], "phase12": r12["egh"], "phase18": r18["egh"]["phase18"],
-           "phase19": r18["egh"]["phase19"], "off_path": off_path_checks()}
+           "phase19": r18["egh"]["phase19"], "phase21": r21["egh"]["phase21"],
+           "phase22_chain": r21["egh"]["chain"], "phase22_cloth": r21["egh"]["cloth"],
+           "off_path": off_path_checks()}
     # kernel Q's families that phase 19 leaves without live rows but phase
     # 10 runs (the box's corners on the cloth: friction_pt_rd): times on
     # seeded tables, launches from phase 10
@@ -2987,6 +3347,16 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
         else:
             continue
         kernels.append(egh_record(name, t, c, spills, state=where))
+    # kernels T and U at phase 21's state (the presses' families) and the
+    # chain's (the others), V at the full-shell cloth's
+    for name in JOINT_FAMILIES + ("EnergyDiscreteShells",):
+        for part, state in (("phase21", "phase21"), ("chain", "phase22_chain"),
+                            ("cloth", "phase22_cloth")):
+            t = r21["times"][part]["families"].get(name)
+            if t is not None:
+                kernels.append(egh_record(name, t, r17[state][name], spills,
+                                          state=state.replace("_", " ")))
+                break
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
@@ -3004,6 +3374,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                              "soft_boxes": r18["times"]["phase19"], "seeded_q": tq},
                "egh_spills": spills,
                "volumes_runs": r18["fields"], "volumes_launches": r18["launches"],
+               "joints_runs": r21["fields"], "joints_launches": r21["launches"],
+               "joints_times": r21["times"],
                "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
                "build_s": build.build_info["seconds"],
@@ -3030,6 +3402,8 @@ if __name__ == "__main__":
         sys.exit(staged_run(*sys.argv[2:]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--volumes":
         sys.exit(volumes_run(*sys.argv[2:]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--joints":
+        sys.exit(joints_run(*sys.argv[2:]))
     if len(sys.argv) == 2 and sys.argv[1] == "--witness":
         sys.exit(witness_run())
     sys.exit(main())

@@ -1,4 +1,4 @@
-// Element math shared by kernels M-S: per-element energy, gradient and dense
+// Element math shared by kernels M-V: per-element energy, gradient and dense
 // Hessian of the incremental potential's families (K11).
 //
 // Replaces stark_tpu/solver/assembly.py:117-135, which takes every element
@@ -338,6 +338,26 @@ STK_HD void eigenvalues_sym_2x2(const S& a, const S& b, const S& d, S* s0, S* s1
 // ---------------------------------------------------------------------------
 // the rigid map x(v, w) = t0 + dt v + R(q(w)) loc (JAX maths.py:119-135)
 // ---------------------------------------------------------------------------
+// maths.quat_to_rotation of a unit quaternion (w, x, y, z)
+template <typename S>
+STK_HD void quat_to_rotation(const S* q, S* R) {
+  using T = decltype(val(q[0]));
+  const S tx = q[1] + q[1], ty = q[2] + q[2], tz = q[3] + q[3];
+  const S twx = tx * q[0], twy = ty * q[0], twz = tz * q[0];
+  const S txx = tx * q[1], txy = ty * q[1], txz = tz * q[1];
+  const S tyy = ty * q[2], tyz = tz * q[2];
+  const S tzz = tz * q[3];
+  R[0] = T(1) - (tyy + tzz);
+  R[1] = txy - twz;
+  R[2] = txz + twy;
+  R[3] = txy + twz;
+  R[4] = T(1) - (txx + tzz);
+  R[5] = tyz - twx;
+  R[6] = txz - twy;
+  R[7] = tyz + twx;
+  R[8] = T(1) - (txx + tyy);
+}
+
 // R(q1), q1 = normalize(q0 + (0.5 dt) (0, w) x q0): the Hamilton product as
 // the twin's L((0, w)) @ q0, a row an fma_ chain in column order (its zero
 // entry dropped), the norm through safe_norm, the rotation as
@@ -353,20 +373,7 @@ STK_HD void rigid_rotation(const T* q0, const S* w, T dt, S* R) {
             q0[3] + hdt * qm3};
   const S n = safe_sqrt(((q[0] * q[0] + q[1] * q[1]) + q[2] * q[2]) + q[3] * q[3]);
   for (int c = 0; c < 4; ++c) q[c] = q[c] / n;
-  const S tx = q[1] + q[1], ty = q[2] + q[2], tz = q[3] + q[3];
-  const S twx = tx * q[0], twy = ty * q[0], twz = tz * q[0];
-  const S txx = tx * q[1], txy = ty * q[1], txz = tz * q[1];
-  const S tyy = ty * q[2], tyz = tz * q[2];
-  const S tzz = tz * q[3];
-  R[0] = T(1) - (tyy + tzz);
-  R[1] = txy - twz;
-  R[2] = txz + twy;
-  R[3] = txy + twz;
-  R[4] = T(1) - (txx + tzz);
-  R[5] = tyz - twx;
-  R[6] = txz - twy;
-  R[7] = tyz + twx;
-  R[8] = T(1) - (txx + tyy);
+  quat_to_rotation(q, R);
 }
 // R @ loc, each row through fma_ (R_k0 l0, + R_k1 l1, + R_k2 l2): a body
 // point sits ~0.1 m out while the barrier reads distances of ~1e-3 m

@@ -1,8 +1,9 @@
 """Small differentiable math helpers used by the energy models.
 
 Port of `stark_tpu/maths.py`, limited to what the deformable families, the
-rigid-body inertia and fix-constraint families and the contact families use
-(the quaternion kinematics of rigid bodies included).
+rigid-body inertia and constraint families and the contact families use
+(the quaternion kinematics of rigid bodies included), and the scalar
+easing of scripted scenes (`blend`).
 
 NaN-safety conventions: `torch.where` evaluates BOTH branches, and under
 `torch.func` the gradient of an unselected NaN/Inf branch poisons the result
@@ -205,3 +206,21 @@ def rotation_to_quat(R):
         y, z = (R[1, 2] + R[2, 1]) / s, 0.25 * s
     q = np.array([w, x, y, z])
     return q / np.linalg.norm(q)
+
+
+def blend(begin_value, end_value, begin_time, end_time, t, blend_type="linear"):
+    """Scalar easing used by scripted animations (reference utils/blends.h)."""
+    if t <= begin_time:
+        return begin_value
+    if t >= end_time:
+        return end_value
+    s = (t - begin_time) / (end_time - begin_time)
+    if blend_type == "linear":
+        w = s
+    elif blend_type == "ease_in_out":
+        w = 0.5 - 0.5 * np.cos(np.pi * s)
+    elif blend_type == "instant":
+        w = 1.0
+    else:
+        raise ValueError(f"unknown blend type {blend_type}")
+    return begin_value + (end_value - begin_value) * w

@@ -6,8 +6,8 @@ shells (full and flat-rest) and tet strain (Stable Neo-Hookean). Each
 energy is a plain PyTorch per-element function `(u_e, row, glob) ->
 scalar`, the plain twin from which `torch.func` derives its gradient and
 Hessian (ops/egh.py); on the card kernels M (triangle strain), P (the
-inertia, prescribed and flat-shell families), R (segment strain) and S
-(tet strain) compute them; full DiscreteShells still takes torch.func. The
+inertia, prescribed and flat-shell families), R (segment strain), S
+(tet strain) and V (full DiscreteShells) compute them. The
 host-side table builders (rest-pose precomputation) are numpy copies of the
 JAX package's, so both packages freeze identical element tables.
 """
@@ -597,9 +597,13 @@ class DiscreteShellsParams(FluentParams):
     flat_rest_angle: bool = False
 
 
-# kernel P's flat-rest shells entry (csrc/egh_inertia.cu)
+# kernel P's flat-rest shells entry (csrc/egh_inertia.cu) and kernel V's full
+# shells (csrc/egh_shells.cu)
 _SHELLS_FLAT_READS = [("r", "nodes"), ("r", "bergou_K"), ("r", "bergou_coef"),
                       ("r", "stiffness"), ("g", "x0"), ("g", "dt")]
+_SHELLS_READS = [("r", "nodes"), ("r", "rest_dihedral_angle"), ("r", "rest_edge_length"),
+                 ("r", "rest_height"), ("r", "scale"), ("r", "stiffness"), ("r", "damping"),
+                 ("g", "x0"), ("g", "dt")]
 
 
 class EnergyDiscreteShells:
@@ -614,7 +618,8 @@ class EnergyDiscreteShells:
         self._groups = {self.NAME: [], self.NAME_FLAT: []}
         self._rest = {self.NAME: [], self.NAME_FLAT: []}   # per-element rest tuples
         stark.global_potential.add_potential(
-            PotentialFamily(self.NAME, 4, self._energy_full),
+            PotentialFamily(self.NAME, 4, self._energy_full,
+                            kernel=egh.kernel("egh_shells", "shells", _SHELLS_READS)),
             lambda: self._provider(self.NAME))
         stark.global_potential.add_potential(
             PotentialFamily(self.NAME_FLAT, 4, self._energy_flat, psd=True,

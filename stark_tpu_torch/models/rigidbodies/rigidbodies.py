@@ -77,12 +77,31 @@ class RigidBodyHandler:
         self.rb.a[self._idx] = np.asarray(a, dtype=np.float64)
         return self
 
+    def set_angular_acceleration(self, aa):
+        self.rb.aa[self._idx] = np.asarray(aa, dtype=np.float64)
+        return self
+
     def set_force(self, f):
         self.rb.force[self._idx] = np.asarray(f, dtype=np.float64)
         return self
 
     def set_torque(self, t):
         self.rb.torque[self._idx] = np.asarray(t, dtype=np.float64)
+        return self
+
+    def add_force_at_centroid(self, f):
+        self.rb.force[self._idx] += np.asarray(f, dtype=np.float64)
+        return self
+
+    def add_force_at(self, f, p_glob):
+        f = np.asarray(f, dtype=np.float64)
+        r = np.asarray(p_glob) - self.rb.t1[self._idx]
+        self.rb.force[self._idx] += f
+        self.rb.torque[self._idx] += np.cross(r, f)
+        return self
+
+    def add_torque(self, t):
+        self.rb.torque[self._idx] += np.asarray(t, dtype=np.float64)
         return self
 
     def get_label(self) -> str:
@@ -133,6 +152,10 @@ class RigidBodyHandler:
 
     def get_velocity_at(self, x_loc) -> np.ndarray:
         return self.rb.get_velocity_at(self._idx, x_loc)
+
+    def exit_if_not_valid(self, where=""):
+        if self._idx < 0 or self._idx >= self.rb.n_bodies:
+            raise RuntimeError(f"invalid RigidBodyHandler in {where}")
 
 
 class RigidBodies:

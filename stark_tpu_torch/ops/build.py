@@ -11,20 +11,20 @@ stream travel as `c_void_p`.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc or a card.
 
-The element-derivative kernels M-S (`egh_*.cu`) build with `-fmad=false`:
+The element-derivative kernels M-V (`egh_*.cu`) build with `-fmad=false`:
 their value-only and derivative forms must round the energy alike, bit for
 bit. Their element math also builds as plain C++17 with g++
 (`host_library`, CPU only, for the tests and for the operation counts
 `chip_smoke.py` prices a bound with).
 
 `launches` counts kernel launches by kernel entry point (and, for the
-segmented reduce, the compaction and kernels M-S, by call site: M-S per
+segmented reduce, the compaction and kernels M-V, by call site: M-V per
 family, `egh_strain[strain]` for e, g and H, `egh_strain[strain:e]` for the
 value only). Each wrapper adds one right after its kernel launched and
 nowhere else, so a run can show that the main path went through the
 kernels. `func_on_card` counts, by family, the evaluations on CUDA tensors
-that still go through torch.func (families with no kernel yet: full
-DiscreteShells).
+that go through torch.func: a family without a kernel (every family has
+one; the smoke asserts the count stays empty).
 """
 from __future__ import annotations
 
@@ -52,10 +52,12 @@ NO_FMA_FLAGS = ["-fmad=false"]
 # sources compiled as several objects, one nvcc process each, all started
 # with the others: egh_contact.cu's 14 dual kernels took 205 s as one
 # process; per kind (PT, EE) and dtype each part builds a quarter of them
-# (egh_friction.cu, kernel Q, is split the same way)
+# (egh_friction.cu, kernel Q, and egh_joints.cu, T and U, are split the same
+# way)
 _EGH_PARTS = [["-DSTK_EGH_PART=%d" % k, "-DSTK_EGH_ONLY_%s" % d]
               for k in (0, 1) for d in ("F32", "F64")]
-PARTS = {"egh_contact.cu": _EGH_PARTS, "egh_friction.cu": _EGH_PARTS}
+PARTS = {"egh_contact.cu": _EGH_PARTS, "egh_friction.cu": _EGH_PARTS,
+         "egh_joints.cu": _EGH_PARTS}
 HOST_FLAGS = ["-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
               "-x", "c++"]
 
@@ -100,13 +102,16 @@ _SIGNATURES = {
     "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
-# kernels M-S: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
+# kernels M-V: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
 EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "rb_linear", "rb_angular", "global_points", "global_directions",
                 "pt_dd", "pt_dr", "pt_rd", "pt_rr", "ee_dd", "ee_dr", "ee_rr",
                 "segment", "segment_eo", "tet", "tet_eo",
                 "friction_pt_dd", "friction_pt_dr", "friction_pt_rd", "friction_pt_rr",
-                "friction_ee_dd", "friction_ee_dr", "friction_ee_rr")
+                "friction_ee_dd", "friction_ee_dr", "friction_ee_rr",
+                "points", "point_on_axis", "distances", "distance_limits", "damped_spring",
+                "directions", "angle_limits", "linear_velocity", "angular_velocity",
+                "shells")
 _EGH_ARGS = [_P, _P, _L, _P, _P, _P, _P]
 _SIGNATURES.update({"stk_egh_" + f: _EGH_ARGS for f in EGH_FAMILIES})
 # entry points without a floating-point operand: one symbol, no suffix
@@ -242,7 +247,7 @@ def library() -> ctypes.CDLL:
 
 
 def host_library() -> ctypes.CDLL:
-    """The element math of kernels M-S built as plain C++17 with g++ (one
+    """The element math of kernels M-V built as plain C++17 with g++ (one
     process per source, linked into build/libstark_egh_host_<hash>.so):
     entry points stk_host_egh_<family>_f32/_f64 (ptrs, scalars, E, e, g, H)
     that loop over the rows on the CPU."""
@@ -260,7 +265,7 @@ def host_library() -> ctypes.CDLL:
             gxx = shutil.which("g++")
             if gxx is None:
                 raise RuntimeError("g++ not found: the host build of kernels "
-                                   "M-S needs a C++17 compiler")
+                                   "M-V needs a C++17 compiler")
             os.makedirs(BUILD_DIR, exist_ok=True)
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
                 procs = []
@@ -294,7 +299,7 @@ def host_library() -> ctypes.CDLL:
 
 
 def host_entry(name: str, dtype: torch.dtype):
-    """The host build's counterpart of entry(name, dtype) for kernels M-S."""
+    """The host build's counterpart of entry(name, dtype) for kernels M-V."""
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
     if suffix is None:
         raise TypeError(f"{name}: unsupported dtype {dtype}")

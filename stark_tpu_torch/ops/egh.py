@@ -1,16 +1,16 @@
-"""Kernels M-S: per-element energy, gradient and dense Hessian (K11), the
+"""Kernels M-V: per-element energy, gradient and dense Hessian (K11), the
 launcher they share and their plain twin.
 
 Replaces the `jax.vmap(jax.hessian(e_fn))` of stark_tpu/solver/assembly.py:
 117-135. A family whose `PotentialFamily.kernel` is set evaluates on CUDA
 tensors through its hand-written kernel (csrc/egh_strain.cu M,
 egh_contact.cu N and O, egh_inertia.cu P, egh_friction.cu Q, egh_rod.cu R,
-egh_tet.cu S; each model registers its family's launcher, `kernel`, with
-the tables its entry reads), and on CPU tensors through the plain twin:
-torch.func's vmap(grad_and_value) and vmap(hessian) of the family's
-energy, masked and symmetrised. A family without a kernel (full
-DiscreteShells) still takes the twin on the card, counted per family in
-`build.func_on_card`.
+egh_tet.cu S, egh_joints.cu T and U, egh_shells.cu V; each model registers
+its family's launcher, `kernel`, with the tables its entry reads), and on
+CPU tensors through the plain twin: torch.func's vmap(grad_and_value) and
+vmap(hessian) of the family's energy, masked and symmetrised. Every
+family has a kernel; one without would take the twin on the card, counted
+per family in `build.func_on_card`.
 
 Layouts: e (E,), g (E, arity, 3), H (E, 3 arity, 3 arity), inactive rows
 exact zeros, H symmetric; the kernels write them so, the twin masks and

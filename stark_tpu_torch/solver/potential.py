@@ -2,7 +2,7 @@
 
 Each registered `PotentialFamily` carries a plain PyTorch per-element energy
 function and, where one is written, its hand-written CUDA kernel
-(`kernel`, ops/egh.py: kernels M-S). On CUDA tensors the kernel computes
+(`kernel`, ops/egh.py: kernels M-V). On CUDA tensors the kernel computes
 the element energies, gradients and dense Hessians; on CPU tensors (and on
 the card for a family without a kernel) they come from
 `torch.func.grad_and_value` / `torch.func.hessian` under `torch.func.vmap`

@@ -1,4 +1,4 @@
-"""Seeded element tables for the kernel families of kernels M-S (K11): the
+"""Seeded element tables for the kernel families of kernels M-V (K11): the
 inputs `tests/test_torch_egh.py` (CPU, against JAX), `tests/test_torch_cuda.py`
 (card, against the twins) and `chip_smoke.py` (the families no scene of the
 smoke runs) hand to a family's kernel and its twin.
@@ -10,7 +10,10 @@ tet (the strain limit's clamped square root), a segment of zero length
 (safe_norm's clamp), a row with d = dhat exactly (the barrier's gap of 0),
 a touching row (d = 0, the distance's floor), friction rows at rest (stick)
 and exactly at u = epsu (the slide branch), inactive rows (some with the
-zero tables of capacity padding), rows past dhat and a body at w = 0.
+zero tables of capacity padding), rows past dhat and a body at w = 0;
+for the joints (T, U) angle and distance limits on both sides, an angle
+limit at rest, zero-length distances and the velocity controllers at dv =
++-delay exactly; for full shells (V) a flat stencil.
 """
 from __future__ import annotations
 
@@ -252,6 +255,107 @@ def _friction_rows(rng, glob, u, stem, n):
     return conn, rows
 
 
+def _x1_d1(glob, u, body, loc):
+    """numpy x1 and d1 = R1 loc of body-local `loc` under the case's w (the
+    rows' geometry, to place the limits' rows)."""
+    from ..maths import np_quat_time_integration, np_quat_to_rotation
+
+    dt = float(glob["dt"])
+    v, w = u[N_SOFT + 2 * body], u[N_SOFT + 2 * body + 1]
+    R1 = np_quat_to_rotation(np_quat_time_integration(glob["rb_q0"][body], w, dt))
+    d = np.einsum("nij,nj->ni", R1, loc)
+    return glob["rb_t0"][body] + dt * v + d, d
+
+
+def _joint_rows(name, rng, glob, u, n):
+    """Rows of the rigid joint families (kernels T and U): random pairs of
+    distinct bodies, plus the ties where the twin's autodiff picks a branch.
+    Body 0 turns with w = 0 from q0 = 1, so its directions are exact: row 0
+    of an angle limit at rest (the same direction of body 0 twice: l is
+    safe_norm's 1e-15, the where's zero); rows 0 and 1 of the velocity
+    controllers at dv = +delay and -delay exactly (the inner where's E_r and
+    E_c); rows on both sides of the limits; the distance families' row 1 of
+    zero length (the same point of one body twice: safe_norm's clamp)."""
+    glob["rb_q0"][0] = [1.0, 0.0, 0.0, 0.0]
+    kind = name[len("rb_constraint_"):]
+    a = rng.integers(0, N_BODIES, n)
+    b = (a + 1 + rng.integers(0, N_BODIES - 1, n)) % N_BODIES
+    rows = {"stiffness": rng.uniform(1e3, 1e6, n)}
+    if kind in ("linear_velocity", "angular_velocity"):
+        rows["da_loc"] = _unit(rng.normal(size=(n, 3)))
+        a[:2], b[:2], rows["da_loc"][:2] = 0, 1, [1.0, 0.0, 0.0]
+        lin = kind == "linear_velocity"
+        # v1 of bodies 0 and 1 (w1 of body 1): da1 . (vb - va) = 0.75 exactly
+        if lin:
+            u[N_SOFT], u[N_SOFT + 2] = [0.25, 0.3, -0.1], [1.0, -0.2, 0.4]
+        else:
+            u[N_SOFT + 3] = [0.75, 0.2, -0.3]
+        side = lambda body: u[N_SOFT + 2 * body + (0 if lin else 1)]
+        v = np.sum(_x1_d1(glob, u, a, rows["da_loc"])[1] * (side(b) - side(a)), axis=1)
+        delay = rng.uniform(0.005, 0.05, n)
+        # dv = v - target in each branch: below -delay, within, above
+        f = rng.choice([-3.0, -0.5, 0.5, 3.0], n)
+        target = v - f * delay
+        delay[:2] = 2.0 ** -7
+        target[:2] = [0.75 - 2.0 ** -7, 0.75 + 2.0 ** -7]
+        rows["target_v" if lin else "target_w"] = target
+        rows["max_force" if lin else "max_torque"] = rng.uniform(1.0, 50.0, n)
+        rows["delay"] = delay
+        vb, wb = _vw(b)
+        va, wa = _vw(a)
+        conn = np.stack([va, vb, wa] if lin else [wa, wb], 1)
+    elif kind in ("directions", "angle_limits"):
+        rows["da_loc"] = _unit(rng.normal(size=(n, 3)))
+        rows["db_loc"] = _unit(rng.normal(size=(n, 3)))
+        if kind == "angle_limits":
+            a[0], b[0], rows["db_loc"][0] = 0, 0, rows["da_loc"][0]
+            l = np.linalg.norm(_x1_d1(glob, u, b, rows["db_loc"])[1]
+                               - _x1_d1(glob, u, a, rows["da_loc"])[1], axis=1)
+            rows["max_distance"] = l * np.where(rng.random(n) < 0.5, 0.8, 1.25)
+            rows["max_distance"][0] = 0.1
+        conn = np.stack([_vw(a)[1], _vw(b)[1]], 1)
+    else:
+        rows["a_loc"] = rng.normal(0.0, 0.1, (n, 3))
+        rows["b_loc"] = rng.normal(0.0, 0.1, (n, 3))
+        if kind in ("distances", "distance_limits", "damped_spring"):
+            b[1], rows["b_loc"][1] = a[1], rows["a_loc"][1]
+        l = np.linalg.norm(_x1_d1(glob, u, b, rows["b_loc"])[0]
+                           - _x1_d1(glob, u, a, rows["a_loc"])[0], axis=1)
+        if kind == "point_on_axis":
+            rows["da_loc"] = _unit(rng.normal(size=(n, 3)))
+        elif kind == "distances":
+            rows["target_distance"] = l * rng.uniform(0.8, 1.2, n)
+        elif kind == "distance_limits":
+            # below min, inside, above max
+            where = rng.integers(0, 3, n)
+            lo = np.choose(where, [1.2, 0.8, 0.5])
+            rows["min_distance"], rows["max_distance"] = l * lo, l * (lo + 0.4)
+            rows["min_distance"][1], rows["max_distance"][1] = 0.05, 0.2
+        elif kind == "damped_spring":
+            rows["rest_length"] = l * rng.uniform(0.8, 1.2, n)
+            rows["damping"] = rng.uniform(0.0, 10.0, n)
+        va, wa = _vw(a)
+        vb, wb = _vw(b)
+        conn = np.stack([va, wa, vb, wb], 1)
+    rows.update(a=a, b=b)
+    return conn, rows
+
+
+def _shell_rows(rng, glob, n):
+    """Full DiscreteShells (kernel V): random stencils (folded), and row 0
+    flat: the edge from node 1 (0, 0, 0) to node 2 (1, 0, 0), wings node 3
+    (0, 1, 0) and node 11 (0.5, -1, 0), all at rest (u = 0): exact, so
+    n0^ . n1^ = 1 and acos sits at 1 - 100 eps."""
+    glob["x0"][11] = [0.5, -1.0, 0.0]
+    nodes = _soft(rng, n, 4)
+    nodes[0] = [1, 2, 3, 11]
+    return nodes, {
+        "nodes": nodes, "rest_dihedral_angle": rng.uniform(0.0, 1.0, n),
+        "rest_edge_length": rng.uniform(0.05, 0.2, n), "rest_height": rng.uniform(0.02, 0.1, n),
+        "scale": rng.uniform(0.5, 2.0, n), "stiffness": rng.uniform(1e-3, 1.0, n),
+        "damping": rng.uniform(0.0, 0.1, n)}
+
+
 def _family_data(name, rng, glob, u):
     n = N_ROWS
     if name.startswith("contact_"):
@@ -276,6 +380,11 @@ def _family_data(name, rng, glob, u):
         rows = {"node": node, "target": rng.normal(0.0, 0.1, (n, 3)),
                 "stiffness": rng.uniform(1e3, 1e7, n)}
         conn = node[:, None]
+    elif name == "EnergyDiscreteShells":
+        conn, rows = _shell_rows(rng, glob, n)
+    elif name.startswith("rb_constraint_") and name not in (
+            "rb_constraint_global_points", "rb_constraint_global_directions"):
+        conn, rows = _joint_rows(name, rng, glob, u, n)
     elif name == "EnergyBendingFlat":
         conn = _soft(rng, n, 4)
         rows = {"nodes": conn, "bergou_K": rng.normal(size=(n, 4)),
@@ -338,7 +447,11 @@ KERNEL_FAMILIES = (
     "contact_pt_rr", "contact_ee_dd", "contact_ee_dr", "contact_ee_rr",
     "EnergySegmentStrain", "EnergySegmentStrain_ElasticityOnly", "EnergyTetStrain",
     "EnergyTetStrain_ElasticityOnly", "friction_pt_dd", "friction_pt_dr", "friction_pt_rd",
-    "friction_pt_rr", "friction_ee_dd", "friction_ee_dr", "friction_ee_rr")
+    "friction_pt_rr", "friction_ee_dd", "friction_ee_dr", "friction_ee_rr",
+    "rb_constraint_points", "rb_constraint_point_on_axis", "rb_constraint_distances",
+    "rb_constraint_distance_limits", "rb_constraint_directions", "rb_constraint_angle_limits",
+    "rb_constraint_damped_spring", "rb_constraint_linear_velocity",
+    "rb_constraint_angular_velocity", "EnergyDiscreteShells")
 
 
 def port_families(barrier: str = "Cubic", friction: str = "C0"):
@@ -422,6 +535,66 @@ def f32_ratio(out32, twin32, twin64, part: str, spread) -> tuple:
     floor = torch.maximum((t - r).abs().amax(dim=1), spread.to(o.device))
     by_floor = (o - r).abs().amax(dim=1) / (2.0 * floor + tiny)
     wide = (floor > tol) & (by_floor < ratio)
+    ratio = torch.where(wide, by_floor, ratio)
+    return float(ratio.max()), int(wide.sum())
+
+
+def dihedral_spread(energy_fn, u, conn, rows, glob, ulps: int = 4):
+    """Per element, how far the twin's e, g and H move when every dihedral
+    angle's cosine c = n0^ . n1^ moves by `ulps` units in the last place
+    below 1 (both signs; maths.dihedral_angle's factor 1 - 100 eps shifted
+    by as much): c is known to a few ulps whatever the order of its
+    roundings (the twin's torch ops and kernel V's order part by up to 4 on
+    a cloth's stencils), and near a flat edge acos magnifies that by 1 /
+    (1 - c). Returns (e, g, H) spreads, each (E,)."""
+    from .. import maths
+    from ..ops import egh
+
+    eps = float(torch.finfo(u.dtype).eps)
+    ref = egh.plain(energy_fn, u, conn, rows, glob)
+    n = conn.shape[0]
+    out = [torch.zeros(n, dtype=torch.float64, device=u.device) for _ in ref]
+    orig = maths.dihedral_angle
+    for sign in (-1.0, 1.0):
+        shifted = 100.0 * eps + sign * ulps * eps / 2.0
+        maths.dihedral_angle = lambda x0, x1, x2, x3, eps=None: orig(x0, x1, x2, x3, shifted)
+        try:
+            moved = egh.plain(energy_fn, u, conn, rows, glob)
+        finally:
+            maths.dihedral_angle = orig
+        for k, (a, b) in enumerate(zip(moved, ref)):
+            out[k] = torch.maximum(out[k], (a - b).reshape(n, -1).abs().amax(dim=1).double()
+                                   if n else out[k])
+    return tuple(out)
+
+
+def f64_ratio(out64, twin64, part: str, spread, tol: float = 1e-10) -> tuple:
+    """A float64 kernel result against its float64 twin, element by
+    element, as f32_ratio judges float32: (the worst ratio of an element's
+    error to its tolerance, <= 1 passes; the number of elements held by the
+    second rule). An element passes within `tol` of its largest |entry| (for
+    `part` "e": of the family's largest |e|); where rounding the positions
+    at float64 precision moves the twin itself farther (`spread`,
+    f64_spread's with float64's eps), no float64 evaluation can come that
+    close, and the element may instead lie within twice that move. Full
+    DiscreteShells at a nearly flat edge is such a case: acos at 1 - 100 eps
+    + (1 - c) amplifies c's last bit by 1 / (1 - c), and its `spread` is
+    the larger of f64_spread's and dihedral_spread's."""
+    n = out64.shape[0]
+    if n == 0:
+        return 0.0, 0
+    o = out64.double().reshape(n, -1)
+    t = twin64.double().reshape(n, -1).to(o.device)
+    tiny = torch.finfo(torch.float64).tiny
+    scale = t.abs().amax(dim=1)
+    if part == "e":
+        scale = torch.full_like(scale, float(t.abs().max()))
+    bound = tol * scale + tiny
+    err = (o - t).abs().amax(dim=1)
+    ratio = err / bound
+    floor = spread.to(o.device)
+    by_floor = err / (2.0 * floor + tiny)
+    wide = (floor > bound) & (by_floor < ratio)
     ratio = torch.where(wide, by_floor, ratio)
     return float(ratio.max()), int(wide.sum())
 

@@ -11,8 +11,7 @@ Newton iteration and profiles one more time step:
 
 - energy_grad_hess, energy, PD projection, cat + diag + inverse: host
   launches between CUDA events, as the solver launches them;
-- energy_grad_hess per family: each family's kernel (M-S) or, for a family
-  without one (full shells), its torch.func twin, between CUDA
+- energy_grad_hess per family: each family's kernel (M-V) between CUDA
   events;
 - the two kernels of one CG iteration (hvp_bucket + block3_apply): captured
   in a CUDA graph, so the time is the device's alone;

@@ -167,3 +167,94 @@ def deformable_and_rigid_collisions(dtype: str, device: str = "cuda", n1: int = 
     c.set_friction(floor.contact, h2.contact, mu)
     c.set_friction(h1.contact, h2.contact, mu)
     return sim, (h1, h2, floor)
+
+
+def simple_grasp(dtype: str, device: str = "cuda", duration: float = 7.0):
+    """Upstream's simple_grasp (examples/main.cpp:416-523; repo-root
+    examples/scenes.py:272-319), its output calls dropped: a fixed 0.6 m
+    hand drives two 0.1 x 0.4 x 0.4 m fingers through prismatic presses
+    (+-1 m/s, at most 5 N each) onto a Soft_Rubber cube of side 0.2 (n = 5:
+    216 nodes, 625 elasticity-only tets, E = 2e3, 1 kg), sticking friction
+    mu = 1.05, contact thickness 1 mm, min contact stiffness 1e7, gravity
+    off; gravity blends in to -10 m/s^2 over 2-3 s and mu drops to 0.95
+    from 5 s. `duration` is the settings' end time (upstream's 7 s).
+    Returns (sim, (cube, hand, left, right, left press, right press))."""
+    from stark_tpu_torch import Simulation
+    from stark_tpu_torch.maths import blend
+    from stark_tpu_torch.models.interactions.contact import ContactGlobalParams
+    from stark_tpu_torch.presets.presets import VolumeParams
+
+    s = _settings("simple_grasp", dtype, device, True)
+    s.execution.end_simulation_time = duration
+    s.simulation.gravity = (0.0, 0.0, 0.0)
+    sim = Simulation(s)
+    n, d = 5, 0.2
+    hd, gap = d / 2, 0.02
+    mass, gravity, pressure = 1.0, -10.0, 10.0
+    mu_sticking, mu_sliding = 1.05, 0.95
+    sim.interactions.contact.set_global_params(
+        ContactGlobalParams().set_default_contact_thickness(0.001)
+        .set_friction_stick_slide_threshold(0.001).set_min_contact_stiffness(1e7))
+    obj_params = VolumeParams.Soft_Rubber()
+    obj_params.inertia.density = mass / d ** 3
+    obj_params.strain.elasticity_only = True
+    obj_params.strain.youngs_modulus = 2e3
+    obj = sim.presets.deformables.add_volume_grid("deformable", (d,) * 3, (n,) * 3, obj_params)
+    hand = sim.presets.rigidbodies.add_box("hand", mass, (3 * d,) * 3)
+    hand.rigidbody.set_translation((0.0, -(3 * hd + hd + gap), 0.0))
+    fingers_size = (0.5 * d, 2 * d, 2 * d)
+    left = sim.presets.rigidbodies.add_box("finger", mass, fingers_size)
+    left.rigidbody.set_translation((-(hd + 0.5 * hd + gap), -gap, 0.0))
+    right = sim.presets.rigidbodies.add_box("finger", mass, fingers_size)
+    right.rigidbody.set_translation((hd + 0.5 * hd + gap, -gap, 0.0))
+    c = sim.interactions.contact
+    c.disable_collision(hand.contact, left.contact)
+    c.disable_collision(hand.contact, right.contact)
+    sim.rigidbodies.add_constraint_fix(hand.rigidbody)
+    press_l = sim.rigidbodies.add_constraint_prismatic_press(
+        hand.rigidbody, left.rigidbody, (0, 0, 0), (1, 0, 0), 1.0, 0.5 * pressure)
+    press_r = sim.rigidbodies.add_constraint_prismatic_press(
+        hand.rigidbody, right.rigidbody, (0, 0, 0), (1, 0, 0), -1.0, 0.5 * pressure)
+    c.set_friction(left.contact, obj.contact, mu_sticking)
+    c.set_friction(right.contact, obj.contact, mu_sticking)
+    sim.add_time_event(2.0, 3.0, lambda t: sim.set_gravity(
+        (0.0, 0.0, blend(0.0, gravity, 2.0, 3.0, t))))
+
+    def reduce_friction(t):
+        c.set_friction(left.contact, obj.contact, mu_sliding)
+        c.set_friction(right.contact, obj.contact, mu_sliding)
+
+    sim.add_time_event(5.0, 7.0, reduce_friction)
+    return sim, (obj, hand, left, right, press_l, press_r)
+
+
+def rigid_joint_chain(dtype: str, device: str = "cuda", dt: float = 0.01):
+    """Three boxes on one chain of every rigid joint family (the scene of
+    tests/test_derivatives.py::test_fd_rigid_constraints): box 0 fixed, a
+    point to box 1, a hinge from box 1 to box 2, a distance and distance
+    limits, an angle limit, a damped spring, linear and angular velocity
+    controllers and a point on an axis; gravity on, no contact. Returns
+    (sim, (box 0, box 1, box 2))."""
+    from stark_tpu_torch import Simulation
+    from stark_tpu_torch.models.rigidbodies.inertia_tensors import inertia_tensor_box
+
+    s = _settings("rigid_joint_chain", dtype, device, False)
+    s.simulation.max_time_step_size = dt
+    sim = Simulation(s)
+    rbs = sim.rigidbodies
+    b0 = rbs.add(1.0, inertia_tensor_box(1.0, 0.1))
+    b1 = rbs.add(2.0, inertia_tensor_box(2.0, 0.1))
+    b1.set_translation([0.3, 0, 0])
+    b2 = rbs.add(1.5, inertia_tensor_box(1.5, 0.1))
+    b2.set_translation([0.6, 0, 0])
+    rbs.add_constraint_fix(b0)
+    rbs.add_constraint_point(b0, b1, [0.15, 0, 0])
+    rbs.add_constraint_hinge(b1, b2, [0.45, 0, 0], [0, 0, 1])
+    rbs.add_constraint_distance(b0, b2, [0, 0, 0], [0.6, 0, 0])
+    rbs.add_constraint_distance_limits(b0, b2, [0, 0, 0], [0.6, 0, 0], 0.5, 0.7)
+    rbs.add_constraint_angle_limit(b1, b2, [0, 0, 1], 10.0)
+    rbs.add_constraint_spring(b0, b2, [0, 0, 0], [0.6, 0, 0], 100.0, 1.0)
+    rbs.add_constraint_linear_velocity(b0, b1, [1, 0, 0], 0.5, 10.0)
+    rbs.add_constraint_angular_velocity(b1, b2, [0, 0, 1], 0.5, 10.0)
+    rbs.add_constraint_point_on_axis(b0, b1, [0.0, 0, 0], [0, 0, 1])
+    return sim, (b0, b1, b2)

@@ -220,8 +220,8 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 def test_unported_paths_raise():
     """What the port does not run yet raises, naming its ROADMAP item; the
-    rigid bodies (P2), contact (P3), friction (P4) and the rods and volumes
-    (P7) are ported."""
+    rigid bodies (P2), contact (P3), friction (P4), the joints (P6) and the
+    rods and volumes (P7) are ported."""
     contact_on = stark_tpu_torch.Settings()
     contact_on.device.device = "cpu"
     assert contact_on.simulation.init_frictional_contact
@@ -232,8 +232,8 @@ def test_unported_paths_raise():
         sim.interactions.attachments
     a = sim.rigidbodies.add(1.0, np.eye(3))
     b = sim.rigidbodies.add(1.0, np.eye(3))
-    with pytest.raises(NotImplementedError, match="P6"):
-        sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
+    hinge = sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
+    assert hinge.get_point().get_idx() == 0 and hinge.get_direction_lock().get_idx() == 0
     sim = stark_tpu_torch.Simulation(_settings(stark_tpu_torch, cpu=True))
     assert sim.deformables.tet_strain is not None
     assert sim.deformables.segment_strain is not None

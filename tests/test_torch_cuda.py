@@ -1,4 +1,4 @@
-"""Kernels A-S (and the staged solver's sites: B [staged], A [direct], I's
+"""Kernels A-V (and the staged solver's sites: B [staged], A [direct], I's
 contact mode) on a CUDA card against their plain twins, and small scenes on
 the card against the port on the CPU.
 
@@ -761,6 +761,77 @@ def test_hanging_rod_and_net_on_card_track_the_cpu_port(dev):
         assert np.max(np.abs(xg - xc)) < 1e-8
 
 
+def test_rigid_joint_chain_on_card_tracks_the_cpu_port(dev):
+    """Kernels T and U (and P, A-D): tools/scenes.rigid_joint_chain (every
+    joint family on three bodies) for 8 f64 steps of 10 ms on the card
+    against the same port on the CPU: the same solver codes and Newton
+    counts, the bodies' translations and quaternions within 1e-8."""
+    from stark_tpu_torch.tools.scenes import rigid_joint_chain
+
+    def run(device):
+        sim, bodies = rigid_joint_chain("float64", device)
+        out = []
+        for _ in range(8):
+            assert sim.run_one_time_step()
+            out.append(np.concatenate([np.concatenate([b.get_translation(),
+                                                       b.get_quaternion()])
+                                       for b in bodies]))
+        lg = sim.get_logger()
+        return np.asarray(out), lg.series["solver_code"], lg.series["newton_iterations"]
+
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu = run("cuda")
+    for f in ("points", "point_on_axis", "distances", "distance_limits", "damped_spring",
+              "directions", "angle_limits", "linear_velocity", "angular_velocity"):
+        assert build.launches[f"egh_joints[{f}]"] > 0, f
+    assert not build.func_on_card, dict(build.func_on_card)
+    x_cpu, codes_cpu, newton_cpu = run("cpu")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-8
+
+
+def test_full_shell_cloth_on_card_at_8_sweeps_tracks_the_cpu_port(dev):
+    """Kernel V: a 6x6 hanging cloth with full DiscreteShells
+    (flat_rest_angle off: every interior edge starts flat, where acos is
+    steepest), f64, 3 steps, kernel C's Jacobi (and its twin on the CPU) at
+    the card's default 8 sweeps on both sides: the same solver codes and
+    Newton counts, positions within 1e-6 m (PERF.md section 2's scene
+    bound)."""
+    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch.models.deformables.energies import PrescribedPositionsParams
+    from stark_tpu_torch.presets.presets import SurfaceParams
+
+    def run(device):
+        s = Settings()
+        s.output.enable_output = False
+        s.output.enable_frame_writes = False
+        s.simulation.init_frictional_contact = False
+        s.device.device = device
+        s.device.jacobi_sweeps = 8
+        sim = Simulation(s)
+        p = SurfaceParams.Cotton_Fabric()
+        p.bending.flat_rest_angle = False
+        h = sim.presets.deformables.add_surface_grid("", (0.3, 0.3), (6, 6), p)
+        sim.deformables.prescribed_positions.add(h.point_set, [0, 6],
+                                                 PrescribedPositionsParams())
+        for _ in range(3):
+            assert sim.run_one_time_step()
+        lg = sim.get_logger()
+        return (h.point_set.get_positions(), lg.series["solver_code"],
+                lg.series["newton_iterations"])
+
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu = run("cuda")
+    assert build.launches["egh_shells[shells]"] > 0 and build.launches["pd_project"] > 0
+    assert not build.func_on_card, dict(build.func_on_card)
+    x_cpu, codes_cpu, newton_cpu = run("cpu")
+    dev_m = float(np.max(np.abs(x_gpu - x_cpu)))
+    print(f"full shells, 8 sweeps: Newton per step card {newton_gpu}, CPU {newton_cpu}; "
+          f"positions within {dev_m:.3e} m")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert dev_m < 1e-6
+
+
 def _staged_cloth(device, mode="ProjectedNewton", solver="BDPCG", n=6, squeeze=1.0):
     """A 6x6 hanging cloth, f64, on the staged solver's configuration;
     squeeze < 1 scales its x-coordinates after pinning, so the compressed
@@ -941,7 +1012,7 @@ def test_staged_friction_box_on_card_tracks_the_cpu_port(dev, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# kernels M-S: element energies, gradients and Hessians (K11)
+# kernels M-V: element energies, gradients and Hessians (K11)
 # ---------------------------------------------------------------------------
 # the barrier (Cubic, Log) of the contact families, the friction type (C0,
 # C1) of kernel Q's

@@ -77,12 +77,19 @@ VOLUME_FAMILIES = ["EnergySegmentStrain", "EnergySegmentStrain_ElasticityOnly",
                    "EnergyTetStrain", "EnergyTetStrain_ElasticityOnly"]
 FRICTION_FAMILIES = ["friction_pt_dd", "friction_pt_dr", "friction_pt_rd", "friction_pt_rr",
                      "friction_ee_dd", "friction_ee_dr", "friction_ee_rr"]
-NEW_FAMILIES = set(VOLUME_FAMILIES + FRICTION_FAMILIES)
+# the rigid joints (T, U) and full DiscreteShells (V)
+JOINT_FAMILIES = ["rb_constraint_points", "rb_constraint_point_on_axis",
+                  "rb_constraint_distances", "rb_constraint_distance_limits",
+                  "rb_constraint_damped_spring", "rb_constraint_directions",
+                  "rb_constraint_angle_limits", "rb_constraint_linear_velocity",
+                  "rb_constraint_angular_velocity", "EnergyDiscreteShells"]
+NEW_FAMILIES = set(VOLUME_FAMILIES + FRICTION_FAMILIES + JOINT_FAMILIES)
 CASES = [(n, "Cubic", True) for n in MAIN_FAMILIES] + \
     [(n, "Log", True) for n in ("contact_pt_dd", "contact_ee_dd")] + \
     [(n, "Cubic", False) for n in OTHER_FAMILIES] + [("contact_pt_rr", "Log", False)] + \
     [(n, "Cubic", True) for n in VOLUME_FAMILIES] + \
-    [(n, m, True) for m in ("C0", "C1") for n in FRICTION_FAMILIES]
+    [(n, m, True) for m in ("C0", "C1") for n in FRICTION_FAMILIES] + \
+    [(n, "Cubic", True) for n in JOINT_FAMILIES]
 
 
 def _jax_egh(fam, u, conn, rows, glob):
@@ -280,3 +287,111 @@ def test_point_edge_distance_beside_a_long_edge(projected):
     assert nph.point_triangle_region(*torch.as_tensor(x)) == 3    # the edge t0-t1
     rel = abs(e[torch.float32] - e[torch.float64]) / e[torch.float64]
     assert (rel < 1e-5) if projected else (rel > 1e-2)
+
+
+@pytest.mark.parametrize("state", ["flat", "folded"])
+def test_full_shells_kernel_at_flat_and_folded_states(state):
+    """Kernel V (full DiscreteShells) on a cloth's own stencils: a 4x4 grid
+    of side 1 (coordinates exact in binary) with flat_rest_angle off, at
+    rest (every interior edge flat: acos at 1 - 100 eps, its slope
+    ~1/sqrt(200 eps)) and at a random folded iterate. The JAX family (jax.
+    hessian), the twin and the host build agree within 1e-10 of each
+    element's largest entry in float64; the value-only e is the egh e."""
+    from stark_tpu.presets.presets import SurfaceParams
+
+    s = stark_tpu.Settings()
+    s.output.enable_output = False
+    s.simulation.init_frictional_contact = False
+    sim = stark_tpu.Simulation(s)
+    p = SurfaceParams.Cotton_Fabric()
+    p.bending.flat_rest_angle = False
+    p.bending.stiffness = 1e-3
+    p.bending.damping = 1e-4
+    sim.presets.deformables.add_surface_grid("", (1.0, 1.0), (4, 4), p)
+    sim.stark._initialize()
+    name = "EnergyDiscreteShells"
+    fd = sim._get_static_data()[name]
+    conn = np.asarray(fd["conn"])
+    rows = {k: np.asarray(v) for k, v in fd["rows"].items()}
+    glob = {k: np.asarray(v) for k, v in sim._get_glob().items()}
+    n = glob["x0"].shape[0]
+    u = (np.zeros((n, 3)) if state == "flat"
+         else np.random.default_rng(5).normal(0.0, 0.5, (n, 3)))
+    if state == "flat":
+        assert np.all(glob["x0"][:, 2] == 0.0) and np.all(glob["x0"] * 8 == np.round(glob["x0"] * 8))
+    ref = _jax_egh(_families(stark_tpu, "Cubic")[name], u, conn, rows, glob)
+    fam = _families(stark_tpu_torch, "Cubic")[name]
+    t = tables_from_numpy({name: {"conn": conn, "rows": rows}})[name]
+    tglob = {k: torch.as_tensor(v) for k, v in glob.items()}
+    ut = torch.as_tensor(u)
+    twin = egh.plain(fam.energy_fn, ut, t["conn"], t["rows"], tglob)
+    kern = fam.kernel(ut, t["conn"], t["rows"], tglob, True, host=True)
+    for part, a, b, r in zip("egH", twin, kern, ref):
+        assert per_elem_err(a.numpy(), r) <= TOL, (state, part, "twin")
+        assert per_elem_err(b.numpy(), r) <= TOL, (state, part, "kernel")
+    assert torch.equal(fam.kernel(ut, t["conn"], t["rows"], tglob, False, host=True), kern[0])
+    if state == "flat":
+        # every stencil exactly flat: n0^ . n1^ = 1, theta = acos(1 - 100 eps)
+        from stark_tpu_torch import maths
+
+        x = torch.as_tensor(glob["x0"])[t["conn"]]
+        theta = torch.stack([maths.dihedral_angle(*xe) for xe in x])
+        assert torch.all(theta == np.arccos(1.0 - 100.0 * np.finfo(np.float64).eps))
+
+
+def _near_flat_shells(n=40, seed=7):
+    """Full-shell stencils folded by 1e-5 to 1e-3 rad, randomly placed,
+    at rest (u = 0): where acos's slope 1/sqrt(1 - x^2) magnifies c's
+    last bit."""
+    from stark_tpu_torch.maths import np_quat_to_rotation
+
+    rng = np.random.default_rng(seed)
+    x0, nodes = [], []
+    for i in range(n):
+        a = rng.uniform(1e-5, 1e-3)
+        pts = np.array([[0, 0, 0], [1, 0, 0], [0.5, 1, 0],
+                        [0.5, -np.cos(a), np.sin(a)]]) * rng.uniform(0.01, 0.05)
+        q = rng.normal(size=4)
+        q /= np.linalg.norm(q)
+        x0.append(pts @ np_quat_to_rotation(q).T + rng.normal(0.0, 0.2, 3))
+        nodes.append([4 * i, 4 * i + 1, 4 * i + 2, 4 * i + 3])
+    glob = {"dt": np.asarray(1.0 / 30.0), "x0": np.concatenate(x0)}
+    rows = {"nodes": np.asarray(nodes), "active": np.ones(n),
+            "rest_dihedral_angle": rng.uniform(0.0, 1e-3, n),
+            "rest_edge_length": rng.uniform(0.01, 0.05, n),
+            "rest_height": rng.uniform(0.005, 0.03, n), "scale": np.ones(n),
+            "stiffness": rng.uniform(1e-4, 1e-2, n), "damping": np.zeros(n)}
+    return glob, np.zeros((4 * n, 3)), np.asarray(nodes), rows
+
+
+@pytest.mark.parametrize("part", ["g", "H"])
+def test_f64_floor_rule_for_full_shells(part):
+    """tools/egh_cases.f64_ratio, chip_smoke.py's float64 check of full
+    shells (kernel V): at nearly flat edges the twin moves by more than
+    1e-10 of an element's scale under float64 rounding of the positions
+    (f64_spread at float64's eps), so the host build can lie that far from
+    it; the rule passes the host build, and fails it with one row's largest
+    entry moved by four times that row's tolerance."""
+    from stark_tpu_torch.tools.egh_cases import f64_ratio
+
+    glob, u, conn, rows = _near_flat_shells()
+    name = "EnergyDiscreteShells"
+    fam = _families(stark_tpu_torch, "Cubic")[name]
+    t = tables_from_numpy({name: {"conn": conn, "rows": rows}})[name]
+    tglob = {k: torch.as_tensor(v) for k, v in glob.items()}
+    ut = torch.as_tensor(u)
+    k = "egH".index(part)
+    twin = egh.plain(fam.energy_fn, ut, t["conn"], t["rows"], tglob)[k]
+    out = fam.kernel(ut, t["conn"], t["rows"], tglob, True, host=True)[k]
+    spread = f64_spread(fam.energy_fn, ut, t["conn"], t["rows"], tglob, draws=8,
+                        eps=float(torch.finfo(torch.float64).eps))[k]
+    n = out.shape[0]
+    scale = twin.reshape(n, -1).abs().amax(dim=1)
+    assert float((spread / scale).max()) > 1e-10     # the twin itself moves that far
+    ratio, wide = f64_ratio(out, twin, part, spread)
+    assert ratio <= 1.0
+    j = int(torch.argmax(spread / scale))
+    bad = out.clone().reshape(n, -1)
+    m = int(bad[j].abs().argmax())
+    bad[j, m] += 4 * max(1e-10 * float(scale[j]), 2 * float(spread[j]))
+    assert f64_ratio(bad.reshape(out.shape), twin, part, spread)[0] > 1.0

@@ -21,16 +21,13 @@ from torch.func import grad_and_value, hessian, vmap
 import stark_tpu
 import stark_tpu_torch
 from stark_tpu import maths as jm
-from stark_tpu_torch.core.settings import LinearSolver
-from stark_tpu.models.rigidbodies.inertia_tensors import inertia_tensor_box
 from stark_tpu_torch import maths as tm
+from stark_tpu_torch.tools import rb_scenes
 from stark_tpu_torch.utils import mesh_utils
 from stark_tpu_torch.utils.from_jax import tables_from_numpy
 
 RTOL = 1e-10
-_rng = np.random.default_rng(1234)
-MASS = float(_rng.uniform(0.0, 100.0))
-PERTURBATION = float(_rng.uniform(0.0, 100.0)) + 10.0
+MASS, PERTURBATION = rb_scenes.MASS, rb_scenes.PERTURBATION
 
 
 def _rel(a, b):
@@ -153,34 +150,11 @@ def test_rigid_step_tracks_stark_tpu():
     assert np.max(np.abs(xt - xj)) < 1e-9
 
 
-def _settings(name, direct=False):
-    """The fused default (10 ms for 0.5 s) or, with direct, the JAX suite's
-    DirectLLT at 2 ms for 3 s (tests/test_rb_constraints.py:21-33)."""
-    s = stark_tpu_torch.Settings()
-    s.output.simulation_name = name
-    s.output.enable_output = False
-    s.output.enable_frame_writes = False
-    s.device.device = "cpu"
-    s.execution.end_simulation_time = 3.0 if direct else 0.5
-    s.simulation.gravity = (0.0, 0.0, 0.0)
-    s.simulation.init_frictional_contact = False
-    s.simulation.max_time_step_size = 0.002 if direct else 0.01
-    if direct:
-        s.newton.linear_solver = LinearSolver.DirectLLT
-    s.newton.residual_tolerance_abs = 1e-6
-    s.newton.step_tolerance = 0.0
-    return s
-
-
-def _box(sim):
-    return sim.rigidbodies.add(MASS, inertia_tensor_box(MASS, (0.1, 0.1, 0.1)))
-
-
 def _inertia(direct):
-    s = _settings("inertia", direct)
+    s = rb_scenes.settings("inertia", device="cpu", direct=direct)
     s.simulation.gravity = (PERTURBATION, 0.0, 0.0)
     sim = stark_tpu_torch.Simulation(s)
-    box0 = _box(sim)
+    box0 = rb_scenes.box(sim)
     constraint = sim.rigidbodies.add_constraint_global_point(box0, box0.get_translation())
     assert sim.run()
     C, f = constraint.get_violation_in_m_and_force()
@@ -190,8 +164,8 @@ def _inertia(direct):
 
 
 def _global_point(direct):
-    sim = stark_tpu_torch.Simulation(_settings("global_point", direct))
-    box0 = _box(sim)
+    sim = stark_tpu_torch.Simulation(rb_scenes.settings("global_point", device="cpu", direct=direct))
+    box0 = rb_scenes.box(sim)
     constraint = sim.rigidbodies.add_constraint_global_point(box0, box0.get_translation())
     box0.set_force([PERTURBATION, 0, 0])
     assert sim.run()
@@ -202,8 +176,9 @@ def _global_point(direct):
 
 
 def _global_direction(direct):
-    sim = stark_tpu_torch.Simulation(_settings("global_direction", direct))
-    box0 = _box(sim)
+    sim = stark_tpu_torch.Simulation(rb_scenes.settings("global_direction", device="cpu",
+                                                                direct=direct))
+    box0 = rb_scenes.box(sim)
     constraint = sim.rigidbodies.add_constraint_global_direction(box0, [0.0, 0.0, 1.0])
     box0.set_torque([PERTURBATION, 0, 0])
     assert sim.run()
@@ -240,9 +215,11 @@ def test_rb_constraints_on_direct_llt(scene):
 
 
 def test_unported_rigid_paths_raise():
-    sim = stark_tpu_torch.Simulation(_settings("unported"))
-    a, b = _box(sim), _box(sim)
-    with pytest.raises(NotImplementedError, match="P6"):
-        sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
+    """The attachments (P8) raise; the joints (P6) are ported: a hinge
+    returns its handler."""
+    sim = stark_tpu_torch.Simulation(rb_scenes.settings("unported", device="cpu"))
+    a, b = rb_scenes.box(sim), rb_scenes.box(sim)
+    hinge = sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
+    assert hinge.get_point().is_enabled() and hinge.get_direction_lock().is_enabled()
     with pytest.raises(NotImplementedError, match="P8"):
         sim.interactions.attachments
