@@ -76,11 +76,12 @@ Phases (every failure propagates; nothing is caught):
      on phase 15's DirectLLT input; time them and the Cholesky (phases 14
      and 16 run in a child process, `chip_smoke.py --staged OUT`, started
      with phase 9's);
- 17. kernels M-V, the element energies, gradients and Hessians: phases 4,
-     7, 10, 12, 14 and 18-22 assert that every family of their path
+ 17. kernels M-W, the element energies, gradients and Hessians: phases 4,
+     7, 10, 12, 14 and 18-23 assert that every family of their path
      launched its kernel (e, g, H and the value-only form) and that no
      family ran torch.func on the card; at phase 4's, 7's, 10's, 12's,
-     18's, 19's, 21's and 22's states (10, 12 and 18-22 in their processes) each
+     18's, 19's, 21's, 22's and 23's states (10, 12 and 18-23 in their
+     processes) each
      family's kernel is held against its torch.func twin on the card, f64
      within 1e-10 of each element's largest entry (full shells' rows near
      flat edges, whose twin moves farther under f64 rounding of the
@@ -91,7 +92,8 @@ Phases (every failure propagates; nothing is caught):
      tables; then, on the idle card, each family's kernel and twin are
      timed (R and S at phase 18's state, Q at phase 19's, Q's families
      that only phase 10 fills on seeded tables, T and U at phase 21's and
-     the joint chain's, V at the full-shell cloth's), and energy_grad_hess
+     the joint chain's, V at the full-shell cloth's, W at phase 23's, and
+     the families no scene runs on seeded tables), and energy_grad_hess
      and energy() whole with the kernels and with the twins;
  18. run upstream's hanging_box_with_composite_material at n = 10 (1,331
      nodes, 5,000 tets, surface membrane and flat shells, 120 rods on its
@@ -121,7 +123,20 @@ Phases (every failure propagates; nothing is caught):
      s; and the 32x32 hanging cloth with full DiscreteShells (kernel V) in
      float32 for 6 steps: finite, sagging, pins held (phases 21-22 and their
      phase-17 part run in a child process, `chip_smoke.py --joints OUT`,
-     started with phase 9's).
+     started with phase 9's);
+ 23. run upstream's attachments example at its sizes, built through
+     stark_tpu_torch.examples (two 20x20 Cotton_Fabric cloths of 1 m, B
+     turned 45 deg 1 mm above A and glued to A's triangles by distance, a
+     0.25 m box of 0.1 kg glued to B's nodes near it, A pinned at two
+     corners; kernels W, M, P and A-D) in float32 through Simulation.run
+     for 0.4 simulated seconds with VTK frames of "A", "B" and "box" under
+     chiprun_out/chip_smoke/frames/attachments/: finite, every attachment
+     within its tolerance (the converged check's gap), A's pins held, B and
+     the box moved down, every label's frames written and read back finite,
+     the last frame the simulation's positions, every kernel launched,
+     torch.func nowhere on the card (phase 23 and its phase-17 part run in
+     a child process, `chip_smoke.py --attachments OUT`, started with
+     phase 9's).
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -2285,6 +2300,133 @@ def joints_run(out_json: str, go_file: str = None) -> int:
 
 
 # ---------------------------------------------------------------------------
+# phase 23: upstream's attachments example (kernel W) with frame output
+# ---------------------------------------------------------------------------
+ATTACH_FAMILIES = ("EnergyAttachments_d_d_p_p", "EnergyAttachments_d_d_p_e",
+                   "EnergyAttachments_d_d_p_t", "EnergyAttachments_d_d_e_e",
+                   "EnergyAttachments_rb_d")
+# the example's other families: two Cotton_Fabric cloths (M, P's flat
+# shells and lumped inertia), A's two pins and the box's inertia (P)
+ATTACH_SCENE_FAMILIES = ("EnergyLumpedInertia", "EnergyTriangleStrain", "EnergyBendingFlat",
+                         "EnergyPrescribedPositions", "EnergyRigidBodyInertia_Linear",
+                         "EnergyRigidBodyInertia_Angular")
+N_ATTACH, ATTACH_SECONDS = 20, 0.4
+ATTACH_LABELS = ("A", "B", "box")
+FRAMES_DIR = os.path.join(OUT_DIR, "frames", "attachments")
+
+
+def expected_frames(fps: float, t_end: float) -> int:
+    """Frames core/stark.py writes from t = 0 to t_end at `fps`: the first,
+    then one each time the clock passes the next frame time."""
+    eps = 100.0 * np.finfo(np.float64).eps
+    return 1 + sum(1 for k in range(1, int(t_end * fps) + 2) if t_end > k / fps + eps)
+
+
+def attachments_run(out_json: str, go_file: str = None) -> int:
+    """Phase 23, run as `chip_smoke.py --attachments OUT_JSON [GO_FILE]`:
+    upstream's attachments example at its sizes, built through
+    stark_tpu_torch.examples, in float32 through Simulation.run for
+    ATTACH_SECONDS with VTK frames under FRAMES_DIR; its checks; then
+    phase 17's checks of kernel W (and the scene's other kernels) at its end
+    state and, once GO_FILE exists (the other processes are done with the
+    card), W's times; writes the fields, launches and records."""
+    import shutil
+
+    from stark_tpu_torch import examples
+    from stark_tpu_torch.utils.vtk import read_vtk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)     # seven processes share the host's cores
+    t0 = time.perf_counter()
+    out = {"fields": {}, "launches": {}, "egh": {}}
+    print("-- phase 23", flush=True)
+    shutil.rmtree(FRAMES_DIR, ignore_errors=True)
+    s = examples.base_settings("attachments")
+    s.output.output_directory = FRAMES_DIR
+    s.output.enable_output = False
+    s.device.device = DEVICE
+    s.device.dtype = "float32"
+    sim, h = examples.build_attachments(s, N_ATTACH)
+    att = sim.interactions.attachments
+    rows = {k: len(att._elems[k]) for k in ATTACH_FAMILIES}
+    with_rows = tuple(k for k in ATTACH_FAMILIES if rows[k])
+    print("phase 23 rows: " + json.dumps(rows), flush=True)
+    dyn = sim._dyn
+    sets = {"A": h.a.point_set.all_global_indices(), "B": h.b.point_set.all_global_indices()}
+    x_rest = dyn.host_x_all().copy()
+    box_rest = h.box.rigidbody.get_translation().copy()
+    pins = np.asarray(sim.deformables.prescribed_positions._nodes)
+    launches, fields = run_through_run(sim, ATTACH_SECONDS, "phase 23")
+
+    x = dyn.host_x_all()
+    box_t = h.box.rigidbody.get_translation()
+    gaps = {}
+    for k in with_rows:
+        g = att.gaps(k, current=True)
+        tol = np.asarray([att.groups[k][e["group"]]["tolerance"] for e in att._elems[k]])
+        gaps[k] = {"max_gap_m": float(g.max()), "tolerance_m": float(tol.min()),
+                   "stiffness": [grp["stiffness"] for grp in att.groups[k]]}
+        assert np.all(g <= tol), f"phase 23: {k} gaps {float(g.max())} past {float(tol.min())}"
+    frames = sim.get_frame()
+    fps = s.output.fps
+    n_expected = expected_frames(fps, sim.get_time())
+    fields.update(rows=rows, gaps=gaps, frames=frames, frames_expected=n_expected,
+                  pin_deviation=float(np.max(np.linalg.norm(x[pins] - x_rest[pins], axis=1))),
+                  b_mean_dz_m=float(np.mean(x[sets["B"], 2] - x_rest[sets["B"], 2])),
+                  box_dz_m=float(box_t[2] - box_rest[2]))
+    print("phase 23 checks: " + json.dumps({k: fields[k] for k in (
+        "rows", "gaps", "frames", "frames_expected", "pin_deviation", "b_mean_dz_m",
+        "box_dz_m")}), flush=True)
+    assert len(sets["A"]) == len(sets["B"]) == (N_ATTACH + 1) ** 2, \
+        "phase 23: not upstream's sizes"
+    assert set(with_rows) == {"EnergyAttachments_d_d_p_e", "EnergyAttachments_d_d_p_t",
+                              "EnergyAttachments_rb_d"}, f"phase 23: rows {rows}"
+    assert np.all(np.isfinite(x)) and np.all(np.isfinite(box_t)), "phase 23: non-finite"
+    assert fields["pin_deviation"] < 2e-3, f"phase 23: A's pins moved {fields['pin_deviation']}"
+    assert fields["b_mean_dz_m"] < 0.0 and fields["box_dz_m"] < 0.0, \
+        "phase 23: B or the box did not move down"
+    # every label's frames, each read back finite; the last one holds the
+    # simulation's positions
+    files = sorted(f for f in os.listdir(FRAMES_DIR) if f.endswith(".vtk"))
+    assert frames == n_expected and len(files) == len(ATTACH_LABELS) * frames, \
+        f"phase 23: {len(files)} frame files, {frames} frames, {n_expected} expected"
+    for label in ATTACH_LABELS:
+        for i in range(frames):
+            V, C = read_vtk(os.path.join(FRAMES_DIR, f"attachments_{label}_{i}.vtk"))
+            assert np.all(np.isfinite(V)) and len(C) > 0, f"phase 23: frame {label} {i}"
+        if label == "box":
+            R1, t1 = sim._rb_dyn.R1[h.box.rigidbody.get_idx()], sim._rb_dyn.t1[
+                h.box.rigidbody.get_idx()]
+            want = h.box.vertices @ R1.T + t1
+        else:
+            want = x[sets[label]]
+        assert np.array_equal(V, np.asarray(want, dtype=np.float64)), \
+            f"phase 23: the last {label} frame is not the simulation's positions"
+    assert_launched(launches, ("segment_reduce[egh]", "segment_reduce[diag]",
+                               "segment_reduce[dense]", "hvp_bucket", "pd_project",
+                               "block3_inverse", "block3_apply"), "phase 23")
+    assert_egh_path(sim, launches, ATTACH_SCENE_FAMILIES + with_rows, "phase 23")
+    out["fields"]["phase23"], out["launches"]["phase23"] = fields, launches
+
+    print("-- phase 17 (phase 23's state)", flush=True)
+    torch.set_num_threads(4)     # the twins' CPU runs
+    out["egh"]["phase23"] = egh_checks(sim, ATTACH_SCENE_FAMILIES + with_rows, "phase 23", 24)
+    if go_file:
+        t_wait = time.perf_counter()
+        while not os.path.exists(go_file):
+            assert time.perf_counter() - t_wait < 1200, "no go from the main process"
+            time.sleep(0.5)
+        print(f"waited {time.perf_counter() - t_wait:.1f}s for the card", flush=True)
+    print("-- phase 17 (times)", flush=True)
+    out["times"] = {"phase23": egh_timings(sim, with_rows, 24, launches)}
+    out["seconds"] = time.perf_counter() - t0
+    with open(out_json, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+# ---------------------------------------------------------------------------
 # on demand, not part of the smoke: `chip_smoke.py --witness` (writes
 # chiprun_out/witness/)
 # ---------------------------------------------------------------------------
@@ -2534,7 +2676,14 @@ OFF_PATH_FAMILIES = ("EnergyTriangleStrain_ElasticityOnly", "contact_pt_rr",
                      "contact_ee_rr", "EnergySegmentStrain_ElasticityOnly",
                      "EnergyTetStrain_ElasticityOnly", "friction_pt_dd", "friction_pt_dr",
                      "friction_pt_rd", "friction_pt_rr", "friction_ee_dd", "friction_ee_dr",
-                     "friction_ee_rr")
+                     "friction_ee_rr", "EnergyAttachments_d_d_p_p",
+                     "EnergyAttachments_d_d_e_e")
+# the families timed on seeded tables because no scene of the smoke runs
+# them (phase 23's W families without rows are added where they have none)
+SEEDED_TIMED = ("EnergyTriangleStrain_ElasticityOnly", "EnergySegmentStrain_ElasticityOnly",
+                "EnergyTetStrain_ElasticityOnly", "contact_pt_rr", "contact_ee_rr",
+                "friction_pt_rr", "friction_ee_rr", "EnergyAttachments_d_d_p_p",
+                "EnergyAttachments_d_d_e_e")
 _ENERGIES = "stark_tpu/models/deformables/energies.py:"
 _CONTACT = "stark_tpu/models/interactions/contact_energies.py:"
 _JOINTS = "stark_tpu/models/rigidbodies/constraints.py:"
@@ -2563,7 +2712,16 @@ EGH_REPLACES = {
     "rb_constraint_linear_velocity": _JOINTS + "310",
     "rb_constraint_angular_velocity": _JOINTS + "318",
     "EnergyDiscreteShells": _ENERGIES + "581",
+    "EnergyTriangleStrain_ElasticityOnly": _ENERGIES + "485",
+    "EnergySegmentStrain_ElasticityOnly": _ENERGIES + "360",
+    "EnergyTetStrain_ElasticityOnly": _ENERGIES + "757",
+    "contact_pt_rr": _CONTACT + "175", "contact_ee_rr": _CONTACT + "195",
 }
+_ATTACH = "stark_tpu/models/interactions/attachments.py:"
+EGH_REPLACES.update({
+    "EnergyAttachments_d_d_p_p": _ATTACH + "89", "EnergyAttachments_d_d_p_e": _ATTACH + "94",
+    "EnergyAttachments_d_d_p_t": _ATTACH + "100", "EnergyAttachments_d_d_e_e": _ATTACH + "106",
+    "EnergyAttachments_rb_d": _ATTACH + "113"})
 
 
 def func_launches():
@@ -2811,6 +2969,11 @@ EGH_OPS = {
     # V: x1 (24), the edges (9), two crosses (18), two normalisations (18),
     # the dot and acos (~12), the same at x0 (~80) and the energy (~12)
     "shells": (173, None),
+    # W: x1 of each soft point (6), the weighted sums (3 per weight), d (3),
+    # d.d (5) and the energy (2); H is (w w^T) x I3, arity(arity + 1) / 2
+    # distinct values; the rigid point adds the rotation and local point (87)
+    "att_pp": (22, 3), "att_pe": (37, 6), "att_pt": (49, 10), "att_ee": (52, 10),
+    "att_rbd": (103, None),
 }
 
 
@@ -2942,7 +3105,12 @@ _SPILL_KEYS.update({
     "damped_spring": "10FamTwoBodyI12DampedSpringLi6EEfLb1E",
     "directions": "13FamDirectionsILb0EEfLb1E", "angle_limits": "13FamDirectionsILb1EEfLb1E",
     "linear_velocity": "11FamVelocityILb1EEfLb1E",
-    "angular_velocity": "11FamVelocityILb0EEfLb1E", "shells": "9FamShellsfLb1E"})
+    "angular_velocity": "11FamVelocityILb0EEfLb1E", "shells": "9FamShellsfLb1E",
+    "strain_eo": "9FamStrainILb0EEfLb1E", "pt_rr": "10FamContactILb0ELb1ELb1EEfLb1E",
+    "ee_rr": "10FamContactILb1ELb1ELb1EEfLb1E",
+    "att_pp": "9FamAttachILi0EEfLb1E", "att_pe": "9FamAttachILi1EEfLb1E",
+    "att_pt": "9FamAttachILi2EEfLb1E", "att_ee": "9FamAttachILi3EEfLb1E",
+    "att_rbd": "12FamAttachRbdfLb1E"})
 _SPILL_KEYS.update({"friction_" + stem: "11FamFrictionILb%dELb%dELb%dEEfLb1E" % flags
                     for stem, flags in (("pt_dd", (0, 0, 0)), ("pt_dr", (0, 0, 1)),
                                         ("pt_rd", (0, 1, 0)), ("pt_rr", (0, 1, 1)),
@@ -3094,14 +3262,17 @@ def main() -> int:
         for src, text in build.build_info["ptxas"].items():
             f.write(f"==== {src}\n{text}\n")
 
-    # phases 9, 10, 12-13, 14, 18-20 and 21-22 run beside phases 3-8, each in a process of its own:
-    # the work is host-bound (one Python thread each) and the card mostly idle
+    # phases 9, 10, 12-13, 14, 18-20, 21-22 and 23 run beside phases 3-8, each in a
+    # process of its own: the work is host-bound (one Python thread each) and
+    # the card mostly idle
     children = [start_child("--golden-sbc16", "golden_sbc16"),
                 start_child("--friction", "friction"),
                 start_child("--scale64", "scale64"),
                 start_child("--staged", "staged", os.path.join(OUT_DIR, "staged.go")),
                 start_child("--volumes", "volumes", os.path.join(OUT_DIR, "volumes.go")),
-                start_child("--joints", "joints", os.path.join(OUT_DIR, "joints.go"))]
+                start_child("--joints", "joints", os.path.join(OUT_DIR, "joints.go")),
+                start_child("--attachments", "attachments",
+                            os.path.join(OUT_DIR, "attachments.go"))]
     try:
         return phases_3_to_11(card, t_start, *children)
     finally:
@@ -3113,7 +3284,7 @@ def main() -> int:
 
 
 def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
-                   staged_child, volumes_child, joints_child) -> int:
+                   staged_child, volumes_child, joints_child, attachments_child) -> int:
     from stark_tpu_torch.ops import build
 
     # ---- 3 ----
@@ -3282,17 +3453,30 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
             if line.startswith(("phase 21", "phase 22", "launches=", "-- ", "  ", "waited")):
                 log("  " + line.strip())
     log(f"  {r21['seconds']:.2f}s (beside phases 3-20)")
+    # phases 21-22 are done with the card: phase 17's times at 23's state
+    open(os.path.join(OUT_DIR, "attachments.go"), "w").close()
+
+    # ---- 23: upstream's attachments example (its own process, started with 9's)
+    log(f"phase 23: attachments (two 20x20 cloths glued by distance, a box glued to "
+        f"one; {ATTACH_SECONDS} s, f32, frames under {os.path.relpath(FRAMES_DIR, ROOT)}); "
+        f"kernel W against its twins")
+    r23 = finish_child(attachments_child, "the attachments run")
+    with open(os.path.join(OUT_DIR, "attachments.log")) as f:
+        for line in f.read().splitlines():
+            if line.startswith(("phase 23", "launches=", "-- ", "  ", "waited")):
+                log("  " + line.strip())
+    log(f"  {r23['seconds']:.2f}s (beside phases 3-22)")
 
     # ---- 17: kernels M-S, on the idle card (every child is done)
-    log("phase 17: kernels M-S against their twins (f64 and f32) at phase 4's, 7's, "
-        "10's, 12's, 18's and 19's states, and on seeded tables for the families no "
+    log("phase 17: kernels M-W against their twins (f64 and f32) at phase 4's, 7's, "
+        "10's, 12's and 18-23's states, and on seeded tables for the families no "
         "scene runs and kernel Q under C0 and C1")
     r17 = {"phase4": egh_checks(sim64, CLOTH_FAMILIES, "phase 4", 4),
            "phase7": egh_checks(sbc, BOX_FAMILIES, "phase 7", 7),
            "phase10": r10["egh"], "phase12": r12["egh"], "phase18": r18["egh"]["phase18"],
            "phase19": r18["egh"]["phase19"], "phase21": r21["egh"]["phase21"],
            "phase22_chain": r21["egh"]["chain"], "phase22_cloth": r21["egh"]["cloth"],
-           "off_path": off_path_checks()}
+           "phase23": r23["egh"]["phase23"], "off_path": off_path_checks()}
     # kernel Q's families that phase 19 leaves without live rows but phase
     # 10 runs (the box's corners on the cloth: friction_pt_rd): times on
     # seeded tables, launches from phase 10
@@ -3301,6 +3485,12 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                 if n not in t19 or r17["phase19"][n]["live_rows"] == 0]
     log(f"phase 17 (times): {seeded_q} on seeded tables, float32")
     tq = seeded_timings(seeded_q, launches_fric)
+    # the families no scene of the smoke runs (kernel W's without rows in
+    # phase 23 among them): times on seeded tables
+    t23 = r23["times"]["phase23"]["families"]
+    seeded_off = [n for n in SEEDED_TIMED if n not in t23]
+    log(f"phase 17 (times): {seeded_off} on seeded tables, float32")
+    t_off = seeded_timings(seeded_off, r23["launches"]["phase23"])
     log("phase 17 (times): the 32x32 spinning box at phase 7's end, float32")
     t7 = egh_timings(sbc, BOX_FAMILIES, 7, launches_sbc)
     log("phase 17 (times): the 64x64 cloth at phase 4's end, float32")
@@ -3357,6 +3547,17 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                 kernels.append(egh_record(name, t, r17[state][name], spills,
                                           state=state.replace("_", " ")))
                 break
+    # kernel W at phase 23's state where its family has rows, else seeded
+    # (the other families no scene runs keep their seeded times in
+    # summary.json's seeded_times)
+    for name in ATTACH_FAMILIES:
+        if name in t23:
+            kernels.append(egh_record(name, t23[name], r17["phase23"][name], spills,
+                                      state="phase23"))
+        elif name in t_off:
+            mode = "C0" if name.startswith("friction_") else "Cubic"
+            kernels.append(egh_record(name, t_off[name], r17["off_path"][f"{name}[{mode}]"],
+                                      spills, state="seeded"))
     summary = {"card": card, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
@@ -3376,6 +3577,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                "volumes_runs": r18["fields"], "volumes_launches": r18["launches"],
                "joints_runs": r21["fields"], "joints_launches": r21["launches"],
                "joints_times": r21["times"],
+               "attachments_runs": r23["fields"], "attachments_launches": r23["launches"],
+               "attachments_times": r23["times"], "seeded_times": t_off,
                "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
                "build_s": build.build_info["seconds"],
@@ -3404,6 +3607,8 @@ if __name__ == "__main__":
         sys.exit(volumes_run(*sys.argv[2:]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--joints":
         sys.exit(joints_run(*sys.argv[2:]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--attachments":
+        sys.exit(attachments_run(*sys.argv[2:]))
     if len(sys.argv) == 2 and sys.argv[1] == "--witness":
         sys.exit(witness_run())
     sys.exit(main())

@@ -1,4 +1,4 @@
-// Element math shared by kernels M-V: per-element energy, gradient and dense
+// Element math shared by kernels M-W: per-element energy, gradient and dense
 // Hessian of the incremental potential's families (K11).
 //
 // Replaces stark_tpu/solver/assembly.py:117-135, which takes every element

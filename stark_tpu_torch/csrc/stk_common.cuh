@@ -13,7 +13,7 @@
 #include <cuda_runtime.h>
 #define STK_HD __host__ __device__ __forceinline__
 #else
-// The element math of kernels M-V (egh_*.cu) also builds as plain C++17
+// The element math of kernels M-W (egh_*.cu) also builds as plain C++17
 // with g++ for the CPU tests; there these are ordinary inline functions.
 #include <cmath>
 #define STK_HD inline

@@ -2,8 +2,8 @@
 
 Port of `stark_tpu/models/deformables/deformables.py`: point sets + lumped
 inertia + prescribed positions + segment strain + triangle strain +
-discrete shells + tet strain, registered in the JAX package's order. Mesh
-output is ROADMAP Queue 1 P10; that attribute raises NotImplementedError.
+discrete shells + tet strain, registered in the JAX package's order, and
+the mesh output.
 """
 from __future__ import annotations
 
@@ -11,8 +11,7 @@ from ..point_dynamics import PointDynamics
 from .energies import (EnergyDiscreteShells, EnergyLumpedInertia,
                        EnergyPrescribedPositions, EnergySegmentStrain,
                        EnergyTetStrain, EnergyTriangleStrain)
-
-_LATER = {"output": "P10"}
+from .output import DeformablesMeshOutput
 
 
 class Deformables:
@@ -24,9 +23,4 @@ class Deformables:
         self.triangle_strain = EnergyTriangleStrain(stark, dyn)
         self.discrete_shells = EnergyDiscreteShells(stark, dyn)
         self.tet_strain = EnergyTetStrain(stark, dyn)
-
-    def __getattr__(self, name):
-        if name in _LATER:
-            raise NotImplementedError(
-                f"deformables.{name} is not ported yet (ROADMAP Queue 1 {_LATER[name]})")
-        raise AttributeError(name)
+        self.output = DeformablesMeshOutput(stark, dyn)

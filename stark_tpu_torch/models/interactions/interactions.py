@@ -1,20 +1,20 @@
 """Interactions aggregate (Interactions.h:9-24): IPC contact with lagged
-friction.
+friction, and the attachments.
 
-Attachments are ROADMAP Queue 1 P8: `interactions.attachments` raises.
+Port of `stark_tpu/models/interactions/interactions.py`. The attachments
+are built after the contact model, as JAX builds them: the registration
+order sets the order of the energy sum.
 """
 from __future__ import annotations
 
+from .attachments import EnergyAttachments
 from .contact import EnergyFrictionalContact
 
 
 class Interactions:
     def __init__(self, stark, dyn, rb_dyn):
         self.contact = EnergyFrictionalContact(stark, dyn, rb_dyn)
-
-    @property
-    def attachments(self):
-        raise NotImplementedError("attachments are not ported yet (ROADMAP Queue 1 P8)")
+        self.attachments = EnergyAttachments(stark, dyn, rb_dyn)
 
     def freeze(self, layout, dtype, device):
         self.contact.freeze(layout, dtype, device)

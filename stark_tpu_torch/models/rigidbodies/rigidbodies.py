@@ -1,15 +1,15 @@
 """RigidBodies aggregate and the per-body fluent handler.
 
 Port of `stark_tpu/models/rigidbodies/rigidbodies.py` (RigidBodies.h,
-RigidBodyHandler.h). Constraint factories forward to joints.py. Rigid mesh
-output (VTK frames) is ROADMAP Queue 1 P10: output labels are accepted and
-nothing is written.
+RigidBodyHandler.h). Constraint factories forward to joints.py; the rigid
+mesh output writes each labelled body's mesh in world space as VTK frames.
 """
 from __future__ import annotations
 
 import numpy as np
 
 from ... import maths
+from ...utils import vtk as vtk_io
 from ..rigid_dynamics import RigidBodyDynamics
 from .constraints import EnergyRigidBodyConstraints
 from .inertia import EnergyRigidBodyInertia
@@ -158,6 +158,30 @@ class RigidBodyHandler:
             raise RuntimeError(f"invalid RigidBodyHandler in {where}")
 
 
+class RigidBodiesMeshOutput:
+    """Rigid body frame output (upstream's RigidBodiesMeshOutput): stores
+    body-local meshes, writes them in world space per frame."""
+
+    def __init__(self, stark, rb: RigidBodyDynamics):
+        self.stark = stark
+        self.rb = rb
+        self.groups = []  # (label, body_idx, local_vertices, triangles)
+        stark.callbacks.add_write_frame(self._write_frame)
+
+    def add_triangle_mesh(self, label: str, body: RigidBodyHandler, vertices_loc, triangles):
+        self.groups.append((label, body.get_idx(),
+                            np.asarray(vertices_loc, dtype=np.float64),
+                            np.asarray(triangles, dtype=np.int64)))
+
+    def _write_frame(self):
+        if not self.groups or not self.stark.settings.output.output_directory:
+            return
+        for label, b, V, T in self.groups:
+            world = V @ self.rb.R1[b].T + self.rb.t1[b]
+            path = self.stark.get_frame_path(label) + ".vtk"
+            vtk_io.write_vtk(path, world, T, "triangles")
+
+
 class RigidBodies:
     def __init__(self, stark, rb: RigidBodyDynamics):
         self.stark = stark
@@ -165,6 +189,7 @@ class RigidBodies:
         self.inertia = EnergyRigidBodyInertia(stark, rb)
         self.constraints = EnergyRigidBodyConstraints(stark, rb, self.inertia)
         self._factories = ConstraintFactories(self)
+        self.output = RigidBodiesMeshOutput(stark, rb)
         self.default_stiffness = 1e6
         self.default_tolerance_in_m = 0.001
         self.default_tolerance_in_deg = 1.0

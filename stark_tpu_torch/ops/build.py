@@ -11,14 +11,14 @@ stream travel as `c_void_p`.
 Nothing here runs at import time: the CPU tests import every module on a
 machine without nvcc or a card.
 
-The element-derivative kernels M-V (`egh_*.cu`) build with `-fmad=false`:
+The element-derivative kernels M-W (`egh_*.cu`) build with `-fmad=false`:
 their value-only and derivative forms must round the energy alike, bit for
 bit. Their element math also builds as plain C++17 with g++
 (`host_library`, CPU only, for the tests and for the operation counts
 `chip_smoke.py` prices a bound with).
 
 `launches` counts kernel launches by kernel entry point (and, for the
-segmented reduce, the compaction and kernels M-V, by call site: M-V per
+segmented reduce, the compaction and kernels M-W, by call site: M-W per
 family, `egh_strain[strain]` for e, g and H, `egh_strain[strain:e]` for the
 value only). Each wrapper adds one right after its kernel launched and
 nowhere else, so a run can show that the main path went through the
@@ -102,7 +102,7 @@ _SIGNATURES = {
     "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
                         _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
-# kernels M-V: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
+# kernels M-W: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
 EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "rb_linear", "rb_angular", "global_points", "global_directions",
                 "pt_dd", "pt_dr", "pt_rd", "pt_rr", "ee_dd", "ee_dr", "ee_rr",
@@ -111,7 +111,7 @@ EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "friction_ee_dd", "friction_ee_dr", "friction_ee_rr",
                 "points", "point_on_axis", "distances", "distance_limits", "damped_spring",
                 "directions", "angle_limits", "linear_velocity", "angular_velocity",
-                "shells")
+                "shells", "att_pp", "att_pe", "att_pt", "att_ee", "att_rbd")
 _EGH_ARGS = [_P, _P, _L, _P, _P, _P, _P]
 _SIGNATURES.update({"stk_egh_" + f: _EGH_ARGS for f in EGH_FAMILIES})
 # entry points without a floating-point operand: one symbol, no suffix
@@ -247,7 +247,7 @@ def library() -> ctypes.CDLL:
 
 
 def host_library() -> ctypes.CDLL:
-    """The element math of kernels M-V built as plain C++17 with g++ (one
+    """The element math of kernels M-W built as plain C++17 with g++ (one
     process per source, linked into build/libstark_egh_host_<hash>.so):
     entry points stk_host_egh_<family>_f32/_f64 (ptrs, scalars, E, e, g, H)
     that loop over the rows on the CPU."""
@@ -265,7 +265,7 @@ def host_library() -> ctypes.CDLL:
             gxx = shutil.which("g++")
             if gxx is None:
                 raise RuntimeError("g++ not found: the host build of kernels "
-                                   "M-V needs a C++17 compiler")
+                                   "M-W needs a C++17 compiler")
             os.makedirs(BUILD_DIR, exist_ok=True)
             with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
                 procs = []
@@ -299,7 +299,7 @@ def host_library() -> ctypes.CDLL:
 
 
 def host_entry(name: str, dtype: torch.dtype):
-    """The host build's counterpart of entry(name, dtype) for kernels M-V."""
+    """The host build's counterpart of entry(name, dtype) for kernels M-W."""
     suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
     if suffix is None:
         raise TypeError(f"{name}: unsupported dtype {dtype}")

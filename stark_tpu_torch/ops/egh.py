@@ -1,13 +1,13 @@
-"""Kernels M-V: per-element energy, gradient and dense Hessian (K11), the
+"""Kernels M-W: per-element energy, gradient and dense Hessian (K11), the
 launcher they share and their plain twin.
 
 Replaces the `jax.vmap(jax.hessian(e_fn))` of stark_tpu/solver/assembly.py:
 117-135. A family whose `PotentialFamily.kernel` is set evaluates on CUDA
 tensors through its hand-written kernel (csrc/egh_strain.cu M,
 egh_contact.cu N and O, egh_inertia.cu P, egh_friction.cu Q, egh_rod.cu R,
-egh_tet.cu S, egh_joints.cu T and U, egh_shells.cu V; each model registers
-its family's launcher, `kernel`, with the tables its entry reads), and on
-CPU tensors through the plain twin: torch.func's vmap(grad_and_value) and
+egh_tet.cu S, egh_joints.cu T and U, egh_shells.cu V, egh_attachments.cu
+W; each model registers its family's launcher, `kernel`, with the tables
+its entry reads), and on CPU tensors through the plain twin: torch.func's vmap(grad_and_value) and
 vmap(hessian) of the family's energy, masked and symmetrised. Every
 family has a kernel; one without would take the twin on the card, counted
 per family in `build.func_on_card`.

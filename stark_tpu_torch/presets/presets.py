@@ -7,8 +7,10 @@ Port of `stark_tpu/presets/presets.py`: the material bundles `LineParams`
 its mesh for contact when `settings.simulation.init_frictional_contact` is
 on (a volume registers its surface only); and the rigid primitives with
 analytic inertia (`add_box`, `add_sphere`, `add_cylinder`, `add_torus`,
-`add`). Output labels are accepted for API parity; mesh output (VTK
-frames) is P10.
+`add`), and `add_prescribed_surface` (a surface pinned to its targets). A
+non-empty output label registers the mesh with the frame output, as the
+JAX package does: a line's segments, a surface's triangles, a volume's
+surface triangles and a rigid body's world-space mesh.
 """
 from __future__ import annotations
 
@@ -19,12 +21,14 @@ import numpy as np
 
 from ..models.deformables.energies import (DiscreteShellsParams,
                                            LumpedInertiaParams,
+                                           PrescribedPositionsParams,
                                            SegmentStrainParams, TetStrainParams,
                                            TriangleStrainParams)
 from ..models.interactions.contact import ContactParams
 from ..models.rigidbodies import inertia_tensors as it
 from ..utils import mesh_generators as gen
-from ..utils.mesh_utils import find_edges_from_simplices, find_surface, rcm_order
+from ..utils.mesh_utils import (apply_map, find_edges_from_simplices, find_surface,
+                                rcm_order)
 
 
 @dataclass
@@ -73,6 +77,12 @@ class SurfaceParams:
 
 
 @dataclass
+class PrescribedSurfaceParams:
+    prescribed: PrescribedPositionsParams = field(default_factory=PrescribedPositionsParams)
+    contact: ContactParams = field(default_factory=ContactParams)
+
+
+@dataclass
 class VolumeParams:
     inertia: LumpedInertiaParams = field(default_factory=LumpedInertiaParams)
     strain: TetStrainParams = field(default_factory=TetStrainParams)
@@ -99,6 +109,7 @@ class Handlers:
     inertia: object = None
     strain: object = None
     bending: object = None
+    prescribed: object = None
     contact: object = None
     vertices: Optional[np.ndarray] = None
     connectivity: Optional[np.ndarray] = None
@@ -120,6 +131,8 @@ class DeformablesPresets:
         strain = d.segment_strain.add(point_set, segments, params.strain)
         contact = self.interactions.contact.add_edges(
             point_set, segments, params.contact) if self._contact_on() else None
+        if output_label:
+            d.output.add_segment_mesh(output_label, point_set, segments)
         return Handlers(point_set=point_set, inertia=inertia, strain=strain,
                         contact=contact, vertices=np.asarray(vertices),
                         connectivity=np.asarray(segments))
@@ -137,6 +150,8 @@ class DeformablesPresets:
         bending = d.discrete_shells.add(point_set, triangles, params.bending)
         contact = self.interactions.contact.add_triangles(
             point_set, triangles, params.contact) if self._contact_on() else None
+        if output_label:
+            d.output.add_triangle_mesh(output_label, point_set, triangles)
         return Handlers(point_set=point_set, inertia=inertia, strain=strain,
                         bending=bending, contact=contact,
                         vertices=np.asarray(vertices),
@@ -145,6 +160,24 @@ class DeformablesPresets:
     def add_surface_grid(self, output_label, dim, subdivisions, params: SurfaceParams):
         V, T = gen.generate_triangle_grid((0.0, 0.0), dim, subdivisions)
         return self.add_surface(output_label, V, T, params)
+
+    def add_prescribed_surface(self, output_label, vertices, triangles,
+                               params: PrescribedSurfaceParams):
+        """A surface whose every node is held at its target (no inertia, no
+        self-collision)."""
+        d = self.deformables
+        point_set = d.point_sets.add(vertices)
+        prescribed = d.prescribed_positions.add(
+            point_set, list(range(point_set.size())), params.prescribed)
+        contact = None
+        if self._contact_on():
+            contact = self.interactions.contact.add_triangles(point_set, triangles,
+                                                              params.contact)
+            contact.disable_collision(contact)  # no self-collisions
+        if output_label:
+            d.output.add_triangle_mesh(output_label, point_set, triangles)
+        return Handlers(point_set=point_set, prescribed=prescribed, contact=contact,
+                        vertices=np.asarray(vertices), connectivity=np.asarray(triangles))
 
     def add_volume(self, output_label, vertices, tets, params: VolumeParams):
         d = self.deformables
@@ -157,6 +190,9 @@ class DeformablesPresets:
         contact = self.interactions.contact.add_triangles(
             point_set, surface_triangles, params.contact,
             point_set_map=tri_to_tet_map) if self._contact_on() else None
+        if output_label:
+            d.output.add_triangle_mesh(output_label, point_set,
+                                       apply_map(surface_triangles, tri_to_tet_map))
         return Handlers(point_set=point_set, inertia=inertia, strain=strain,
                         contact=contact, vertices=np.asarray(vertices),
                         connectivity=np.asarray(tets))
@@ -205,6 +241,8 @@ class RigidBodyPresets:
         if self._contact_on():
             contact = self.interactions.contact.add_triangles(
                 handler, T, contact_params, vertices=V)
+        if output_label:
+            self.rigidbodies.output.add_triangle_mesh(output_label, handler, V, T)
         return RigidBodyPresetHandler(rigidbody=handler, contact=contact,
                                       vertices=V, triangles=T)
 

@@ -4,7 +4,7 @@ Port of the parts of `stark_tpu/solver/assembly.py` that the fused and the
 staged solves run:
 
   * per-element energies, gradients and dense Hessians through each
-    family's kernel (M-V, ops/egh.py `evaluate`) on the card, and from
+    family's kernel (M-W, ops/egh.py `evaluate`) on the card, and from
     `torch.func` (`vmap` over `grad_and_value` / `hessian`, mirroring
     `jax.hessian`) on the CPU,
   * every per-block reduction through kernel A (`ops.segment_reduce`), an

@@ -1,4 +1,4 @@
-"""Seeded element tables for the kernel families of kernels M-V (K11): the
+"""Seeded element tables for the kernel families of kernels M-W (K11): the
 inputs `tests/test_torch_egh.py` (CPU, against JAX), `tests/test_torch_cuda.py`
 (card, against the twins) and `chip_smoke.py` (the families no scene of the
 smoke runs) hand to a family's kernel and its twin.
@@ -13,7 +13,9 @@ and exactly at u = epsu (the slide branch), inactive rows (some with the
 zero tables of capacity padding), rows past dhat and a body at w = 0;
 for the joints (T, U) angle and distance limits on both sides, an angle
 limit at rest, zero-length distances and the velocity controllers at dv =
-+-delay exactly; for full shells (V) a flat stencil.
++-delay exactly; for full shells (V) a flat stencil; for the attachments
+(W) a row glued exactly (d = 0 at rest), barycentrics on the simplex and
+rows on a body at w = 0.
 """
 from __future__ import annotations
 
@@ -356,8 +358,44 @@ def _shell_rows(rng, glob, n):
         "damping": rng.uniform(0.0, 0.1, n)}
 
 
+def _bary(rng, n, k):
+    """n barycentric rows of k weights, on the simplex."""
+    b = rng.random((n, k)) + 0.05
+    return b / b.sum(axis=1, keepdims=True)
+
+
+def _attachment_rows(name, rng, n):
+    """Kernel W's families: random rows, row 0 glued exactly at rest (node
+    4 at (0, 0, 0) on node 1's vertex, edge 1-2 or triangle 1-2-3 with the
+    weight on node 1; the two edges 1-2 and 4-5 at their midpoints)."""
+    k = rng.uniform(1e3, 1e7, n)
+    if name.endswith("rb_d"):
+        body = rng.integers(0, N_BODIES, n)
+        node = rng.integers(0, N_SOFT, n)
+        return np.stack([node, *_vw(body)], 1), {
+            "node": node, "body": body, "loc": rng.normal(0.0, 0.1, (n, 3)),
+            "stiffness": k}
+    kind = name[-3:]
+    arity = {"p_p": 2, "p_e": 3, "p_t": 4, "e_e": 4}[kind]
+    nodes = _soft(rng, n, arity)
+    nodes[0] = {"p_p": [1, 4], "p_e": [4, 1, 2], "p_t": [4, 1, 2, 3],
+                "e_e": [1, 2, 4, 5]}[kind]
+    rows = {"nodes": nodes, "stiffness": k}
+    if kind in ("p_e", "p_t"):
+        rows["bary"] = _bary(rng, n, arity - 1)
+        rows["bary"][0] = [1.0] + [0.0] * (arity - 2)
+    elif kind == "e_e":
+        rows["bary0"], rows["bary1"] = _bary(rng, n, 2), _bary(rng, n, 2)
+        rows["bary0"][0] = rows["bary1"][0] = [0.5, 0.5]
+    return nodes, rows
+
+
 def _family_data(name, rng, glob, u):
     n = N_ROWS
+    if name.startswith("EnergyAttachments_"):
+        conn, rows = _attachment_rows(name, rng, n)
+        rows["active"] = _active(rng, n)
+        return conn, rows
     if name.startswith("contact_"):
         conn, rows = _contact_rows(rng, glob, name[len("contact_"):], n)
         return conn, rows
@@ -451,7 +489,9 @@ KERNEL_FAMILIES = (
     "rb_constraint_points", "rb_constraint_point_on_axis", "rb_constraint_distances",
     "rb_constraint_distance_limits", "rb_constraint_directions", "rb_constraint_angle_limits",
     "rb_constraint_damped_spring", "rb_constraint_linear_velocity",
-    "rb_constraint_angular_velocity", "EnergyDiscreteShells")
+    "rb_constraint_angular_velocity", "EnergyDiscreteShells",
+    "EnergyAttachments_d_d_p_p", "EnergyAttachments_d_d_p_e", "EnergyAttachments_d_d_p_t",
+    "EnergyAttachments_d_d_e_e", "EnergyAttachments_rb_d")
 
 
 def port_families(barrier: str = "Cubic", friction: str = "C0"):

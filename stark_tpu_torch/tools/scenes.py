@@ -1,12 +1,18 @@
-"""Scenes the on-card scripts drive (`chip_smoke.py`, `tools/profile_stages.py`)."""
+"""Scenes the on-card scripts drive (`chip_smoke.py`, `tools/profile_stages.py`).
+
+Each scene function makes its own Settings (output off, the given dtype and
+device) or, given `settings`, builds on those: `stark_tpu_torch.examples`
+passes upstream's (output on, the settings' device and dtype) and shares
+these functions where a scene is in both.
+"""
 from __future__ import annotations
 
 import math
 
 
-def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
+def spinning_box_cloth(n: int, dtype: str = "float32", device: str = "cuda",
                        adaptive: bool = True, name: str = "spinning_box_cloth",
-                       mu: float = 0.0, broad_phase: str = "auto"):
+                       mu: float = 0.0, broad_phase: str = "auto", settings=None):
     """bench.py's spinning_box_cloth: an n x n Cotton_Fabric cloth (0.4 m)
     falling on a fixed 8 cm box that sinks and turns (90 deg/s), IPC contact
     at 2 mm thickness. With mu > 0, Coulomb friction mu between the cloth
@@ -15,16 +21,11 @@ def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
     candidate search; "auto" takes the hash grid for the edge-edge block
     from 62x62 on. Returns (sim, cloth handler, spin(t)); the caller either
     registers spin as a time event or calls it before each step."""
-    from stark_tpu_torch import Settings, Simulation
+    from stark_tpu_torch import Simulation
     from stark_tpu_torch.models.interactions.contact import ContactGlobalParams
     from stark_tpu_torch.presets.presets import SurfaceParams
 
-    s = Settings()
-    s.output.simulation_name = f"{name}_{n}"
-    s.output.enable_output = False
-    s.output.enable_frame_writes = False
-    s.device.device = device
-    s.device.dtype = dtype
+    s = _settings(f"{name}_{n}", dtype, device, True, settings)
     s.simulation.use_adaptive_time_step = adaptive
     sim = Simulation(s)
     gp = ContactGlobalParams()
@@ -47,20 +48,26 @@ def spinning_box_cloth(n: int, dtype: str, device: str = "cuda",
     return sim, cloth, spin
 
 
-def _settings(name: str, dtype: str, device: str, contact: bool):
+def _settings(name: str, dtype: str, device: str, contact: bool, settings=None):
+    """The scene's Settings: `settings` as given (its name, output, device
+    and dtype kept), else new ones with output off; contact on or off as
+    the scene has it."""
     from stark_tpu_torch import Settings
 
-    s = Settings()
-    s.output.simulation_name = name
-    s.output.enable_output = False
-    s.output.enable_frame_writes = False
-    s.device.device = device
-    s.device.dtype = dtype
+    s = settings
+    if s is None:
+        s = Settings()
+        s.output.simulation_name = name
+        s.output.enable_output = False
+        s.output.enable_frame_writes = False
+        s.device.device = device
+        s.device.dtype = dtype
     s.simulation.init_frictional_contact = contact
     return s
 
 
-def hanging_net(dtype: str, device: str = "cuda", n: int = 20, d: float = 1.0):
+def hanging_net(dtype: str = "float32", device: str = "cuda", n: int = 20, d: float = 1.0,
+                settings=None):
     """Upstream's hanging_net (examples/main.cpp:12-39; repo-root
     examples/scenes.py:44): the edges of an n x n grid of side d as
     Elastic_Rubberband rods, every node outside the grid's inner AABB
@@ -72,7 +79,7 @@ def hanging_net(dtype: str, device: str = "cuda", n: int = 20, d: float = 1.0):
     from stark_tpu_torch.utils import mesh_generators as gen
     from stark_tpu_torch.utils.mesh_utils import find_edges_from_simplices
 
-    sim = Simulation(_settings(f"hanging_net_{n}", dtype, device, False))
+    sim = Simulation(_settings(f"hanging_net_{n}", dtype, device, False, settings))
     V, T = gen.generate_triangle_grid((0.0, 0.0), (d, d), (n, n))
     E = find_edges_from_simplices(T, len(V))
     h = sim.presets.deformables.add_line("segments", V, E, LineParams.Elastic_Rubberband())
@@ -82,16 +89,17 @@ def hanging_net(dtype: str, device: str = "cuda", n: int = 20, d: float = 1.0):
     return sim, h
 
 
-def hanging_box_with_composite_material(dtype: str, device: str = "cuda", n: int = 10,
-                                        d: float = 0.2):
+def hanging_box_with_composite_material(dtype: str = "float32", device: str = "cuda",
+                                        n: int = 10, d: float = 0.2, settings=None):
     """Upstream's hanging_box_with_composite_material (examples/main.cpp:
-    109-190; repo-root examples/scenes.py:96-136), its output calls
-    dropped: an n^3 tet grid of side d (Stable Neo-Hookean, E = 1e3) with
-    rods on the surface's sharp edges (E = 5e5, r = 5 mm), a membrane and
-    flat-rest shells on its surface, turned -90 deg about x and hung by
-    the two nodes at (+-d/2, d/2, d/2). At n = 10: 1,331 nodes, 5,000 tets,
-    1,200 surface triangles, 120 segments, 1,800 shell stencils. Returns
-    (sim, point set handler)."""
+    109-190; repo-root examples/scenes.py:96-136): an n^3 tet grid of side
+    d (Stable Neo-Hookean, E = 1e3) with rods on the surface's sharp edges
+    (E = 5e5, r = 5 mm), a membrane and flat-rest shells on its surface,
+    turned -90 deg about x and hung by the two nodes at (+-d/2, d/2, d/2).
+    At n = 10: 1,331 nodes, 5,000 tets, 1,200 surface triangles, 120
+    segments, 1,800 shell stencils; its tets, surface, sharp edges and
+    nodes registered for frame output (written where the settings give an
+    output directory). Returns (sim, point set handler)."""
     from stark_tpu_torch import Simulation
     from stark_tpu_torch.models.deformables.energies import (
         DiscreteShellsParams, LumpedInertiaParams, PrescribedPositionsParams,
@@ -100,14 +108,15 @@ def hanging_box_with_composite_material(dtype: str, device: str = "cuda", n: int
     from stark_tpu_torch.utils import mesh_utils as mu
 
     sim = Simulation(_settings(f"hanging_box_with_composite_material_{n}", dtype,
-                               device, False))
+                               device, False, settings))
     hd = d / 2
     vertices, tets = gen.generate_tet_grid((0, 0, 0), (d, d, d), (n, n, n))
     triangles, tri_tet_map = mu.find_surface(vertices, tets)
     tri_vertices = mu.gather(vertices, tri_tet_map)
     tris_in_tet = mu.apply_map(triangles, tri_tet_map)
     sharp_edges, edge_tri_map = mu.find_sharp_edges(tri_vertices, triangles, 30.0)
-    edges_in_tet = mu.apply_map(sharp_edges, mu.gather(tri_tet_map, edge_tri_map))
+    edge_tet_map = mu.gather(tri_tet_map, edge_tri_map)
+    edges_in_tet = mu.apply_map(sharp_edges, edge_tet_map)
     nodeset = sim.deformables.point_sets.add(vertices)
     nodeset.add_rotation(-90.0, (1, 0, 0))
     defo = sim.deformables
@@ -124,11 +133,16 @@ def hanging_box_with_composite_material(dtype: str, device: str = "cuda", n: int
     bc = PrescribedPositionsParams().set_stiffness(1e7).set_tolerance(1e-3)
     defo.prescribed_positions.add_inside_aabb(nodeset, (hd, hd, hd), (0.001,) * 3, bc)
     defo.prescribed_positions.add_inside_aabb(nodeset, (-hd, hd, hd), (0.001,) * 3, bc)
+    defo.output.add_tet_mesh("tets", nodeset, tets)
+    defo.output.add_triangle_mesh("triangles", nodeset, triangles, tri_tet_map)
+    defo.output.add_segment_mesh("segments", nodeset, sharp_edges, edge_tet_map)
+    defo.output.add_point_set("points", nodeset)
     return sim, nodeset
 
 
-def deformable_and_rigid_collisions(dtype: str, device: str = "cuda", n1: int = 5,
-                                    n2: int = 2, mu: float = 1.0):
+def deformable_and_rigid_collisions(dtype: str = "float32", device: str = "cuda",
+                                    n1: int = 5, n2: int = 2, mu: float = 1.0,
+                                    settings=None):
     """Upstream's deformable_and_rigid_collisions (examples/main.cpp:314-369;
     repo-root examples/scenes.py:214-246): a Soft_Rubber box of side 0.25
     (n1^3 x 5 tets) 1 cm above a fixed rigid floor (2 x 2 x 0.1 m) and a
@@ -141,7 +155,7 @@ def deformable_and_rigid_collisions(dtype: str, device: str = "cuda", n1: int = 
     from stark_tpu_torch.presets.presets import VolumeParams
 
     sim = Simulation(_settings(f"deformable_and_rigid_collisions_{n1}_{n2}", dtype,
-                               device, True))
+                               device, True, settings))
     sim.interactions.contact.set_global_params(
         ContactGlobalParams().set_friction_stick_slide_threshold(0.01)
         .set_min_contact_stiffness(1e8).set_default_contact_thickness(0.001))
@@ -169,9 +183,10 @@ def deformable_and_rigid_collisions(dtype: str, device: str = "cuda", n1: int = 
     return sim, (h1, h2, floor)
 
 
-def simple_grasp(dtype: str, device: str = "cuda", duration: float = 7.0):
+def simple_grasp(dtype: str = "float32", device: str = "cuda", duration: float = 7.0,
+                 settings=None):
     """Upstream's simple_grasp (examples/main.cpp:416-523; repo-root
-    examples/scenes.py:272-319), its output calls dropped: a fixed 0.6 m
+    examples/scenes.py:272-319): a fixed 0.6 m
     hand drives two 0.1 x 0.4 x 0.4 m fingers through prismatic presses
     (+-1 m/s, at most 5 N each) onto a Soft_Rubber cube of side 0.2 (n = 5:
     216 nodes, 625 elasticity-only tets, E = 2e3, 1 kg), sticking friction
@@ -184,7 +199,7 @@ def simple_grasp(dtype: str, device: str = "cuda", duration: float = 7.0):
     from stark_tpu_torch.models.interactions.contact import ContactGlobalParams
     from stark_tpu_torch.presets.presets import VolumeParams
 
-    s = _settings("simple_grasp", dtype, device, True)
+    s = _settings("simple_grasp", dtype, device, True, settings)
     s.execution.end_simulation_time = duration
     s.simulation.gravity = (0.0, 0.0, 0.0)
     sim = Simulation(s)

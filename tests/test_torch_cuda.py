@@ -1,4 +1,4 @@
-"""Kernels A-V (and the staged solver's sites: B [staged], A [direct], I's
+"""Kernels A-W (and the staged solver's sites: B [staged], A [direct], I's
 contact mode) on a CUDA card against their plain twins, and small scenes on
 the card against the port on the CPU.
 
@@ -784,6 +784,40 @@ def test_rigid_joint_chain_on_card_tracks_the_cpu_port(dev):
     for f in ("points", "point_on_axis", "distances", "distance_limits", "damped_spring",
               "directions", "angle_limits", "linear_velocity", "angular_velocity"):
         assert build.launches[f"egh_joints[{f}]"] > 0, f
+    assert not build.func_on_card, dict(build.func_on_card)
+    x_cpu, codes_cpu, newton_cpu = run("cpu")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-8
+
+
+def test_compact_attachments_on_card_track_the_cpu_port(dev):
+    """Kernel W (and M, P, A-D): stark_tpu_torch.examples' attachments at n
+    = 6 (point-edge, point-triangle and rigid-point rows), 6 f64 steps of
+    10 ms on the card against the same port on the CPU: the same solver
+    codes and Newton counts, positions within 1e-8 m."""
+    from stark_tpu_torch import Settings
+    from stark_tpu_torch.examples import build_attachments
+
+    def run(device):
+        s = Settings()
+        s.output.enable_output = False
+        s.output.enable_frame_writes = False
+        s.device.device = device
+        s.simulation.max_time_step_size = 0.01
+        sim, h = build_attachments(s, n=6)
+        out = []
+        for _ in range(6):
+            assert sim.run_one_time_step()
+            out.append(np.concatenate([h.a.point_set.get_positions(),
+                                       h.b.point_set.get_positions(),
+                                       h.box.rigidbody.get_translation()[None]]))
+        lg = sim.get_logger()
+        return np.asarray(out), lg.series["solver_code"], lg.series["newton_iterations"]
+
+    build.reset_launches()
+    x_gpu, codes_gpu, newton_gpu = run("cuda")
+    for f in ("att_pe", "att_pt", "att_rbd"):
+        assert build.launches[f"egh_attachments[{f}]"] > 0, f
     assert not build.func_on_card, dict(build.func_on_card)
     x_cpu, codes_cpu, newton_cpu = run("cpu")
     assert codes_gpu == codes_cpu and newton_gpu == newton_cpu

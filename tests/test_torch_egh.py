@@ -1,12 +1,13 @@
 """Element energies, gradients and Hessians of the port's kernel families
-(kernels M-S, K11) against `stark_tpu`, on the CPU.
+(kernels M-W, K11) against `stark_tpu`, on the CPU.
 
 For every family that has a kernel (triangle strain, full and
 elasticity-only; lumped inertia; prescribed positions; flat-rest shells;
 rigid linear and angular inertia; the fix joint's global points and
 directions; the seven frictionless contact families, Cubic and Log;
 segment and tet strain, full and elasticity-only; the seven friction
-families, C0 and C1), the
+families, C0 and C1; the rigid joints and full shells; the five
+attachment families), the
 same seeded numpy inputs go through the JAX family (jax.hessian under
 vmap, masked and symmetrised as the JAX assembly does), the port's
 torch.func twin (ops/egh.py `plain`) and the host build of the kernels'
@@ -83,13 +84,18 @@ JOINT_FAMILIES = ["rb_constraint_points", "rb_constraint_point_on_axis",
                   "rb_constraint_damped_spring", "rb_constraint_directions",
                   "rb_constraint_angle_limits", "rb_constraint_linear_velocity",
                   "rb_constraint_angular_velocity", "EnergyDiscreteShells"]
+# the attachments (W): the four soft penalties and a soft point on a body
+ATTACHMENT_FAMILIES = ["EnergyAttachments_d_d_p_p", "EnergyAttachments_d_d_p_e",
+                       "EnergyAttachments_d_d_p_t", "EnergyAttachments_d_d_e_e",
+                       "EnergyAttachments_rb_d"]
 NEW_FAMILIES = set(VOLUME_FAMILIES + FRICTION_FAMILIES + JOINT_FAMILIES)
 CASES = [(n, "Cubic", True) for n in MAIN_FAMILIES] + \
     [(n, "Log", True) for n in ("contact_pt_dd", "contact_ee_dd")] + \
     [(n, "Cubic", False) for n in OTHER_FAMILIES] + [("contact_pt_rr", "Log", False)] + \
     [(n, "Cubic", True) for n in VOLUME_FAMILIES] + \
     [(n, m, True) for m in ("C0", "C1") for n in FRICTION_FAMILIES] + \
-    [(n, "Cubic", True) for n in JOINT_FAMILIES]
+    [(n, "Cubic", True) for n in JOINT_FAMILIES] + \
+    [(n, "Cubic", True) for n in ATTACHMENT_FAMILIES]
 
 
 def _jax_egh(fam, u, conn, rows, glob):

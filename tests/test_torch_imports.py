@@ -1,7 +1,8 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
 `chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`, and
-every module of the contact, staged-solver, element-derivative and
-rods-and-volumes slices imports without a card or nvcc."""
+every module of the contact, staged-solver, element-derivative,
+rods-and-volumes and attachments-and-I/O slices imports without a card or
+nvcc."""
 import ast
 import importlib
 import os
@@ -107,6 +108,19 @@ VOLUME_SLICE = [
 ]
 
 
+# the attachments and I/O slice: kernel W's families and the mesh query they
+# are built from, the frame output, OBJ and checkpoints, and the examples
+ATTACHMENT_IO_SLICE = [
+    "stark_tpu_torch.collision.mesh_distance",
+    "stark_tpu_torch.models.interactions.attachments",
+    "stark_tpu_torch.models.deformables.output",
+    "stark_tpu_torch.utils.vtk",
+    "stark_tpu_torch.utils.obj",
+    "stark_tpu_torch.utils.checkpoint",
+    "stark_tpu_torch.examples",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
@@ -116,9 +130,11 @@ def test_port_has_files():
     assert set(STAGED_SLICE) <= names
     assert set(EGH_SLICE) <= names
     assert set(VOLUME_SLICE) <= names
+    assert set(ATTACHMENT_IO_SLICE) <= names
 
 
-@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE + VOLUME_SLICE)
+@pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE + VOLUME_SLICE
+                         + ATTACHMENT_IO_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""

@@ -215,11 +215,19 @@ def test_rb_constraints_on_direct_llt(scene):
 
 
 def test_unported_rigid_paths_raise():
-    """The attachments (P8) raise; the joints (P6) are ported: a hinge
-    returns its handler."""
+    """The joints (P6) are ported: a hinge returns its handler; so are the
+    attachments (P8), whose rb-d form glues a point to the box, and the
+    rigid mesh output (P10)."""
+    from stark_tpu_torch.models.interactions.attachments import (RBD, AttachmentHandler,
+                                                                  EnergyAttachments)
+    from stark_tpu_torch.models.rigidbodies.rigidbodies import RigidBodiesMeshOutput
+
     sim = stark_tpu_torch.Simulation(rb_scenes.settings("unported", device="cpu"))
     a, b = rb_scenes.box(sim), rb_scenes.box(sim)
     hinge = sim.rigidbodies.add_constraint_hinge(a, b, [0, 0, 0], [0, 0, 1])
     assert hinge.get_point().is_enabled() and hinge.get_direction_lock().is_enabled()
-    with pytest.raises(NotImplementedError, match="P8"):
-        sim.interactions.attachments
+    assert isinstance(sim.interactions.attachments, EnergyAttachments)
+    assert isinstance(sim.rigidbodies.output, RigidBodiesMeshOutput)
+    p = sim.deformables.point_sets.add(np.array([[0.0, 0.0, 0.1]]))
+    h = sim.interactions.attachments.add_rb_point(a, p, [0])
+    assert isinstance(h, AttachmentHandler) and h.kind == RBD
