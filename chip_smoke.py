@@ -136,7 +136,26 @@ Phases (every failure propagates; nothing is caught):
      the last frame the simulation's positions, every kernel launched,
      torch.func nowhere on the card (phase 23 and its phase-17 part run in
      a child process, `chip_smoke.py --attachments OUT`, started with
-     phase 9's).
+     phase 9's);
+ 24. K12, the fused solve as one CUDA graph per solve configuration (every
+     fused phase above runs it: one replay and one host read per solve).
+     Kernel X's nested WHILE/IF/WHILE nodes against the eager driver and
+     the closed form, and one WHILE iteration's latency; kernel Y against
+     its twin over three CG iterations of phase 7's final Newton system,
+     its halves timed in CUDA graphs beside the twin's; then at the final
+     states of phases 7, 10 and 23 (three solves each) and 12 (one solve,
+     the grid path) the graph against the eager driver from each solve's
+     recorded inputs, u, stats, counts and M bit for bit, with the captures,
+     the capture time, ms per Newton of both over graph replays (a call
+     that captured is timed again as a replay at the current capacities,
+     else left out of both), and at phases 7 and 23 the last timed solve's
+     eager kernel time under torch.profiler beside both drivers' ms on it
+     (the graph's bound; the graph's busy share is inferred from it, as
+     the profiler misses kernels inside conditional bodies).
+
+A kernel's launch count counts its wrapper's calls: inside the captured
+graph a site counts once per capture (its replays launch it again on the
+device, uncounted), plus the eager driver's calls.
 
 Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
@@ -1116,8 +1135,8 @@ def friction_run(out_json: str) -> int:
     assert np.all(np.isfinite(x)), "non-finite positions"
     assert fields["friction_rows_last"] > 0, "no live friction rows"
     assert not intersects_now(sim), "the final state intersects"
-    assert_launched(launches, CONTACT_KERNELS + FRICTION_KERNELS + SOLVER_KERNELS,
-                    "the friction path")
+    assert_launched(launches, CONTACT_KERNELS + FRICTION_KERNELS + SOLVER_KERNELS
+                    + K12_KERNELS, "the friction path")
     assert_egh_path(sim, launches, BOX_FAMILIES, "the friction path",
                     optional=[n for n in BOX_FAMILIES if n.startswith("contact_")])
     assert_egh_path(sim, launches, BOX_FRICTION_FAMILIES, "the friction path",
@@ -1125,9 +1144,10 @@ def friction_run(out_json: str) -> int:
     results = friction_kernel_checks(sim)
     print("-- phase 17 (kernel Q at the friction run's state)", flush=True)
     egh10 = egh_checks(sim, BOX_FRICTION_FAMILIES, "phase 10", 10)
+    k12 = k12_window(sim, K12_SOLVES, "phase 10")
     with open(out_json, "w") as f:
         json.dump({"fields": fields, "launches": launches, "results": results,
-                   "egh": egh10, "seconds": time.perf_counter() - t0}, f)
+                   "egh": egh10, "k12": k12, "seconds": time.perf_counter() - t0}, f)
     return 0
 
 
@@ -1457,6 +1477,8 @@ def scale64_run(out_json: str) -> int:
         "broad_rebuilds": int(lg.get_stats("broad_rebuilds").total),
         "pair_rebuilds": int(lg.get_stats("pair_rebuilds").total),
         "fused_retraces": int(lg.get_int("fused_retraces")),
+        "host_syncs_per_step": int(lg.get_stats("host_syncs").total)
+        / max(sim.stark.current_time_step, 1),
         "count_max": {k: v for k, v in sorted(count_max.items())
                       if k.startswith(("c_", "g_", "m_"))},
         "live_pairs_last": live[-1], "live_pairs_max": max(live),
@@ -1469,17 +1491,19 @@ def scale64_run(out_json: str) -> int:
     assert np.all(np.isfinite(x)), "non-finite positions"
     assert fields["live_pairs_last"] > 0, "no live contact pairs at the end"
     assert not intersects_now(sim), "the final state intersects"
-    assert_launched(launches, SCALE_KERNELS + CONTACT_KERNELS + JACOBI_KERNELS,
-                    "the 64x64 scale point")
+    assert_launched(launches, SCALE_KERNELS + CONTACT_KERNELS + JACOBI_KERNELS
+                    + K12_KERNELS, "the 64x64 scale point")
     assert_egh_path(sim, launches, BOX_FAMILIES, "the 64x64 scale point")
     print("-- phase 13", flush=True)
     torch.set_num_threads(4)     # the twins' CPU runs
     results, info = scale64_checks(sim)
     print("-- phase 17 (the scale point's state)", flush=True)
     egh12 = egh_checks(sim, BOX_FAMILIES, "phase 12", 12)
+    k12 = k12_window(sim, 1, "phase 12")
     with open(out_json, "w") as f:
         json.dump({"fields": fields, "launches": launches, "results": results,
-                   "info": info, "egh": egh12, "seconds": time.perf_counter() - t0}, f)
+                   "info": info, "egh": egh12, "k12": k12,
+                   "seconds": time.perf_counter() - t0}, f)
     return 0
 
 
@@ -2405,7 +2429,7 @@ def attachments_run(out_json: str, go_file: str = None) -> int:
             f"phase 23: the last {label} frame is not the simulation's positions"
     assert_launched(launches, ("segment_reduce[egh]", "segment_reduce[diag]",
                                "segment_reduce[dense]", "hvp_bucket", "pd_project",
-                               "block3_inverse", "block3_apply"), "phase 23")
+                               "block3_inverse", "block3_apply") + K12_KERNELS, "phase 23")
     assert_egh_path(sim, launches, ATTACH_SCENE_FAMILIES + with_rows, "phase 23")
     out["fields"]["phase23"], out["launches"]["phase23"] = fields, launches
 
@@ -2420,6 +2444,7 @@ def attachments_run(out_json: str, go_file: str = None) -> int:
         print(f"waited {time.perf_counter() - t_wait:.1f}s for the card", flush=True)
     print("-- phase 17 (times)", flush=True)
     out["times"] = {"phase23": egh_timings(sim, with_rows, 24, launches)}
+    out["k12"] = k12_window(sim, K12_SOLVES, "phase 23", profiled=True)
     out["seconds"] = time.perf_counter() - t0
     with open(out_json, "w") as f:
         json.dump(out, f)
@@ -3205,6 +3230,10 @@ FRICTION_KERNELS = ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[p
                     "friction_rows[ee]")
 SOLVER_KERNELS = ("segment_reduce[egh]", "segment_reduce[diag]", "segment_reduce[dense]",
                   "hvp_bucket", "pd_project", "block3_inverse", "block3_apply")
+# K12 (phase 24): the graph's loop control and the PCG step; every fused
+# phase's capture launches them (a launch inside the captured graph counts
+# once per capture, its replays are the device's)
+K12_KERNELS = ("graph_ctl", "pcg_step[1]", "pcg_step[2]")
 # the staged path of phase 14: no shells, so kernel G's EE distance does not
 # run there (the contact mode of I measures every EE pair itself); the
 # oracle's ball pairs (F), lower bounds (G[pt]) and any-hit (H) run in the
@@ -3227,6 +3256,76 @@ def egh_record(name, t, c, spills, **extra) -> dict:
             "shape": t["shape"], **extra, "launches_value_only": t["launches_e"],
             "ms_value_only": t["ms_e"], "plain_ms_value_only": t["plain_ms_e"],
             "spill_stores": spill_of(spills, t["site"])}
+
+
+# ---------------------------------------------------------------------------
+# phase 24: K12, the fused solve as one CUDA graph (kernels X and Y)
+# ---------------------------------------------------------------------------
+K12_SOLVES = 3
+X_LOOP = 1000
+
+
+def k12_window(sim, solves: int, where: str, profiled: bool = False) -> dict:
+    """At a phase's final state: `solves` more time steps through the
+    captured graph, recorded; then each solve again from its inputs and
+    capacities under the eager driver, u, stats, counts and M bit for bit,
+    with the captures, the capture time, ms per Newton of both on graph
+    replays and (`profiled`, phases 7 and 23) the last timed solve's eager
+    kernel time under torch.profiler beside both drivers' ms on it."""
+    from stark_tpu_torch.tools import k12_checks
+
+    res = k12_checks.window(sim, solves, profiled=profiled)
+    print(f"phase 24 ({where}): " + json.dumps(res), flush=True)
+    assert res["solves"] >= solves and all(res["bitwise_equal"]), \
+        f"{where}: the graph and the eager driver differ"
+    return res
+
+
+def k12_kernel_checks(sim) -> dict:
+    """Kernel X's nested WHILE/IF/WHILE check and one WHILE iteration's
+    latency, graph against the eager driver; kernel Y against its twin at
+    the scene's state (the Newton system as the solve forms it) and its two
+    halves timed in CUDA graphs beside the twin's."""
+    from stark_tpu_torch.ops import pcg_step as Y
+    from stark_tpu_torch.solver.pcg import pcg_init
+    from stark_tpu_torch.solver.program import Program
+    from stark_tpu_torch.tools import k12_checks
+
+    out = {}
+    nested = k12_checks.nested_check(torch.device(DEVICE))
+    log("  X nested WHILE/IF/WHILE: " + json.dumps(nested))
+    assert nested["ok"], "kernel X: the nested nodes disagree"
+    n0 = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    n_loop = torch.full((), X_LOOP, dtype=torch.int64, device=DEVICE)
+    g = Program(k12_checks.loop_program, (n0,), graph=True)
+    e = Program(k12_checks.loop_program, (n0,), graph=False)
+    x_ms = events_ms(lambda: g((n_loop,)), iters=5, warmup=1) / X_LOOP
+    x_plain = events_ms(lambda: e((n_loop,)), iters=2, warmup=1) / X_LOOP
+    assert int(g((n_loop,))) == X_LOOP
+    g.release()
+    out["graph_ctl"] = {"max_abs_err": 0.0, "ms": x_ms, "plain_ms": x_plain,
+                        "bound_ms": bound_ms(1, 0, torch.float32)[0], "bound_by": "bytes",
+                        "library_ms": None, "shape": f"WHILE x {X_LOOP}",
+                        "nested": nested["cases"]}
+    A, Minv, b = k12_checks.newton_system(sim)
+    chk = k12_checks.pcg_step_check(A, Minv, b)
+    log("  Y against its twin: " + json.dumps(chk))
+    assert chk["flags_equal"] and chk["max_err_ratio"] <= 1.0, "kernel Y disagrees"
+    x, r, p, sf, si = pcg_init(Minv, b, torch.zeros((), dtype=b.dtype, device=DEVICE), 1)
+    Ap, z = A(p).contiguous(), Minv(r).contiguous()
+    b1, b2 = k12_checks.pcg_step_bytes(b.numel(), b.dtype)
+    for half, kern, plain, nb in (
+            ("pcg_step[1]", lambda: Y.pcg_step1(p, Ap, x, r, sf, si, False, 0.0),
+             lambda: Y.pcg_step1_plain(p, Ap, x, r, sf, si, False, 0.0), b1),
+            ("pcg_step[2]", lambda: Y.pcg_step2(z, r, p, sf, si, 1 << 30),
+             lambda: Y.pcg_step2_plain(z, r, p, sf, si, 1 << 30), b2)):
+        out[half] = {"max_abs_err": chk["max_abs_err"], "ms": graph_ms(kern),
+                     "plain_ms": graph_ms(plain), "bound_ms": bound_ms(nb, 0, b.dtype)[0],
+                     "bound_by": "bytes", "library_ms": None,
+                     "shape": f"{tuple(b.shape)} {chk['dtype']}",
+                     "err_ratio": chk["max_err_ratio"]}
+    log("  X and Y: " + json.dumps(out))
+    return out
 
 
 def assert_launched(launches, names, where: str):
@@ -3362,7 +3461,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     assert np.all(np.isfinite(x)), "non-finite positions"
     assert fields["live_pairs_last"] > 0, "no live contact pairs"
     assert not intersects_now(sbc), "the final state intersects"
-    assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS, "the contact path")
+    assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS + K12_KERNELS,
+                    "the contact path")
     assert_egh_path(sbc, launches_sbc, BOX_FAMILIES, "the contact path")
 
     # ---- 8 ----
@@ -3492,6 +3592,21 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     log(f"phase 17 (times): {seeded_off} on seeded tables, float32")
     t_off = seeded_timings(seeded_off, r23["launches"]["phase23"])
     log("phase 17 (times): the 32x32 spinning box at phase 7's end, float32")
+    # ---- 24: K12 on the idle card, at phase 7's final state
+    log("phase 24: K12, kernels X and Y at phase 7's state, the graph against "
+        "the eager driver")
+    r24 = k12_kernel_checks(sbc)
+    r24["phase7"] = k12_window(sbc, K12_SOLVES, "phase 7", profiled=True)
+    for where, r in (("phase 10", r10.get("k12")), ("phase 12", r12.get("k12")),
+                     ("phase 23", r23.get("k12"))):
+        log(f"  {where}: captures={r['captures']} capture_s={r['capture_s']:.2f} "
+            f"timed solves={r['timed_solves']} "
+            f"graph ms/newton={r['graph_ms_per_newton']} "
+            f"eager ms/newton={r['eager_ms_per_newton']} "
+            f"bit for bit {r['bitwise_equal']}")
+    fs7 = sbc.stark.newton._fused
+    log(f"  phase 7: captures={fs7.captures} capture_s={fs7.capture_seconds:.2f}")
+
     t7 = egh_timings(sbc, BOX_FAMILIES, 7, launches_sbc)
     log("phase 17 (times): the 64x64 cloth at phase 4's end, float32")
     t4 = egh_timings(sim64, CLOTH_FAMILIES, 4, launches64)
@@ -3521,6 +3636,13 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         **({"left_out": r["left_out"]} if "left_out" in r else {})})
+    for name, replaces in (("graph_ctl", "stark_tpu/solver/fused.py:593"),
+                           ("pcg_step[1]", "stark_tpu/solver/pcg.py:99"),
+                           ("pcg_step[2]", "stark_tpu/solver/pcg.py:99")):
+        src = "graph_ctl.cu" if name == "graph_ctl" else "pcg_step.cu"
+        kernels.append({"name": name, "route": "cuda", "source": "stark_tpu_torch/csrc/" + src,
+                        "replaces": replaces, "launches": launches_sbc.get(name, 0),
+                        **r24[name]})
     for name in BOX_FAMILIES + ("EnergyPrescribedPositions",):
         cloth = name == "EnergyPrescribedPositions"
         kernels.append(egh_record(name, (t4 if cloth else t7)["families"][name],
@@ -3581,6 +3703,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                "attachments_times": r23["times"], "seeded_times": t_off,
                "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
+               "k12_phase24": r24, "k12_windows": {"phase10": r10.get("k12"),
+                                                   "phase12": r12.get("k12"),
+                                                   "phase23": r23.get("k12")},
                "build_s": build.build_info["seconds"],
                "total_s": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "summary.json"), "w") as f:

@@ -68,7 +68,13 @@ struct FamPrescribed {
 // ---- flat-rest DiscreteShells: 0.5 k sum_d x_d^T Q x_d, Q = coef K K^T,
 // expanded as the twin's x1^T Q x1 (the factored coef (K . x_d)^2 rounds
 // the float64 cloth apart from the CPU port's: 1.05e-8 m in 3 steps on an
-// H100, over tests/test_torch_cuda.py's 1e-8);
+// H100, over tests/test_torch_cuda.py's 1e-8). In float32 the positions
+// are taken relative to node 0 first: K sums to zero, so Q ignores a
+// common shift, and the expanded form's rounding then scales with the
+// stencil's size rather than its distance from the origin (with absolute
+// positions, the nearly flat 64x64 cloth's e lay at 0.96-1.35x the f32
+// rule of chip_smoke.py phase 17 against the f32 twin, as the CG's
+// rounding moved the state); float64 keeps the twin's absolute form;
 // p = nodes (E, 4), bergou_K (E, 4), bergou_coef, stiffness, x0, dt ----
 struct FamShellsFlat {
   template <typename T, bool D>
@@ -85,6 +91,10 @@ struct FamShellsFlat {
       x[n][0] = x0.x + dt * u.x;
       x[n][1] = x0.y + dt * u.y;
       x[n][2] = x0.z + dt * u.z;
+    }
+    if (sizeof(T) == 4) {
+      for (int n = 3; n >= 0; --n)
+        for (int d = 0; d < 3; ++d) x[n][d] = x[n][d] - x[0][d];
     }
     // sum over the coordinates d of x_d^T (Q x_d), the inner sums in node order
     S acc = konst<S>(T(0));

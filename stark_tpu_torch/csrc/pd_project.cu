@@ -6,7 +6,9 @@
 // V diag(w) V^T for the elements that changed.
 //
 // One warp owns one matrix. A, its eigenvector accumulator V and two scratch
-// copies live in shared memory (d <= 16, so at most 4 x 256 values per warp).
+// copies live in dynamic shared memory: four warps share a block for d <= 16
+// (at most 4 x 256 values per warp); for 16 < d <= 64 (user families of more
+// than five nodes) a block holds one warp, whose lanes take rows i, i + 32.
 // Each round of the round-robin schedule (the host passes `sched[r][i]`, the
 // partner of row i in round r, i itself for a bye; built by
 // `_round_robin_rounds`, project.py:31-50) applies floor(d/2) disjoint
@@ -28,7 +30,8 @@
 // with only __syncwarp between the row and column passes.
 #include "stk_common.cuh"
 
-#define STK_PD_DMAX 16
+#define STK_PD_DMAX 64
+#define STK_PD_NARROW 16
 #define STK_PD_WARPS 4
 
 __device__ __forceinline__ float stk_atan2(float y, float x) { return atan2f(y, x); }
@@ -38,14 +41,13 @@ __device__ __forceinline__ double stk_cos(double x) { return cos(x); }
 __device__ __forceinline__ float stk_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double stk_sin(double x) { return sin(x); }
 
+// One warp's shared memory: A, B, V, W (d x d each), cr, sr, w (d each), then
+// the d partners; rounded up to 16 bytes so the next warp's values align.
 template <typename T>
-struct PdWarp {
-  T buf[4][STK_PD_DMAX * STK_PD_DMAX];
-  T cr[STK_PD_DMAX];
-  T sr[STK_PD_DMAX];
-  T w[STK_PD_DMAX];
-  int partner[STK_PD_DMAX];
-};
+__host__ __device__ inline size_t pd_warp_bytes(int d) {
+  const size_t b = (4 * (size_t)d * d + 3 * (size_t)d) * sizeof(T) + (size_t)d * sizeof(int);
+  return (b + 15) & ~(size_t)15;
+}
 
 template <typename T>
 __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
@@ -54,17 +56,20 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
                                   const uint8_t* __restrict__ elem_mask,
                                   T* __restrict__ H_out,
                                   uint8_t* __restrict__ changed) {
-  __shared__ PdWarp<T> smem[STK_PD_WARPS];
+  extern __shared__ __align__(16) unsigned char stk_pd_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const long long m = (long long)blockIdx.x * STK_PD_WARPS + warp;
+  const long long m = (long long)blockIdx.x * (blockDim.x >> 5) + warp;
   if (m >= n_mat) return;  // whole warp leaves together
-  PdWarp<T>& s = smem[warp];
-  T* A = s.buf[0];
-  T* B = s.buf[1];
-  T* V = s.buf[2];
-  T* W = s.buf[3];
   const int dd = d * d;
+  T* A = reinterpret_cast<T*>(stk_pd_smem + warp * pd_warp_bytes<T>(d));
+  T* B = A + dd;
+  T* V = B + dd;
+  T* W = V + dd;
+  T* cr = W + dd;
+  T* sr = cr + d;
+  T* wn = sr + d;
+  int* partner = reinterpret_cast<int*>(wn + d);
   const T* Hm = H + m * dd;
   for (int t = lane; t < dd; t += 32) {
     A[t] = Hm[t];
@@ -74,12 +79,11 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
 
   for (int sw = 0; sw < sweeps; ++sw) {
     for (int r = 0; r < n_rounds; ++r) {
-      if (lane < d) {
-        const int i = lane;
+      for (int i = lane; i < d; i += 32) {
         const int j = sched[r * d + i];
         if (j == i) {
-          s.cr[i] = T(1);
-          s.sr[i] = T(0);
+          cr[i] = T(1);
+          sr[i] = T(0);
         } else {
           const int p = i < j ? i : j;
           const int q = i < j ? j : i;
@@ -89,24 +93,24 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
           const T theta = T(0.5) * stk_atan2(T(2) * apq, aqq - app);
           const T c = stk_cos(theta);
           const T sn = stk_sin(theta);
-          s.cr[i] = c;
-          s.sr[i] = (i == p) ? -sn : sn;
+          cr[i] = c;
+          sr[i] = (i == p) ? -sn : sn;
         }
-        s.partner[i] = j;
+        partner[i] = j;
       }
       __syncwarp();
       for (int t = lane; t < dd; t += 32) {
         const int i = t / d;
         const int k = t - i * d;
-        B[t] = s.cr[i] * A[t] + s.sr[i] * A[s.partner[i] * d + k];
+        B[t] = cr[i] * A[t] + sr[i] * A[partner[i] * d + k];
       }
       __syncwarp();
       for (int t = lane; t < dd; t += 32) {
         const int i = t / d;
         const int k = t - i * d;
-        const int pk = i * d + s.partner[k];
-        A[t] = s.cr[k] * B[t] + s.sr[k] * B[pk];
-        W[t] = s.cr[k] * V[t] + s.sr[k] * V[pk];
+        const int pk = i * d + partner[k];
+        A[t] = cr[k] * B[t] + sr[k] * B[pk];
+        W[t] = cr[k] * V[t] + sr[k] * V[pk];
       }
       __syncwarp();
       T* tmp = V;
@@ -116,10 +120,11 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
   }
 
   bool below = false;
-  if (lane < d) {
-    const T wi = A[lane * d + lane];
-    below = wi < eps;
-    s.w[lane] = below ? (mirroring ? -wi : eps) : wi;
+  for (int i = lane; i < d; i += 32) {
+    const T wi = A[i * d + i];
+    const bool bi = wi < eps;
+    below |= bi;
+    wn[i] = bi ? (mirroring ? -wi : eps) : wi;
   }
   const bool any_below = __any_sync(0xffffffffu, below);
   const bool sel = any_below && (elem_mask == nullptr || elem_mask[m] != 0);
@@ -130,7 +135,7 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
       const int i = t / d;
       const int k = t - i * d;
       T acc = T(0);
-      for (int j = 0; j < d; ++j) acc += V[i * d + j] * s.w[j] * V[k * d + j];
+      for (int j = 0; j < d; ++j) acc += V[i * d + j] * wn[j] * V[k * d + j];
       Hom[t] = acc;
     } else {
       Hom[t] = Hm[t];
@@ -146,8 +151,14 @@ static int launch_pd_project(const T* H, int n_mat, int d, const int* sched,
                              uint8_t* changed, cudaStream_t stream) {
   if (d < 1 || d > STK_PD_DMAX) return (int)cudaErrorInvalidValue;
   if (n_mat == 0) return stk_launch_status();
-  const int threads = 32 * STK_PD_WARPS;
-  pd_project_kernel<T><<<stk_blocks(n_mat, STK_PD_WARPS), threads, 0, stream>>>(
+  const int warps = d <= STK_PD_NARROW ? STK_PD_WARPS : 1;
+  const size_t bytes = warps * pd_warp_bytes<T>(d);
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        pd_project_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  pd_project_kernel<T><<<stk_blocks(n_mat, warps), 32 * warps, bytes, stream>>>(
       H, n_mat, d, sched, n_rounds, sweeps, (T)eps, mirroring, elem_mask, H_out,
       changed);
   return stk_launch_status();

@@ -15,7 +15,10 @@ The element-derivative kernels M-W (`egh_*.cu`) build with `-fmad=false`:
 their value-only and derivative forms must round the energy alike, bit for
 bit. Their element math also builds as plain C++17 with g++
 (`host_library`, CPU only, for the tests and for the operation counts
-`chip_smoke.py` prices a bound with).
+`chip_smoke.py` prices a bound with). Kernel Y (`pcg_step.cu`) builds with
+`-fmad=false` too, so that its vector updates round as its plain version's;
+it and kernel X (`graph_ctl.cu`, the CUDA-graph loop control) are left out
+of the g++ build.
 
 `launches` counts kernel launches by kernel entry point (and, for the
 segmented reduce, the compaction and kernels M-W, by call site: M-W per
@@ -46,8 +49,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# sources whose value-only and derivative forms must round alike
+# sources whose value-only and derivative forms must round alike (and kernel
+# Y, whose axpys round as its plain version's); the g++ host build takes the
+# egh_ sources alone
 NO_FMA_PREFIX = "egh_"
+NO_FMA_SOURCES = ("pcg_step.cu",)
 NO_FMA_FLAGS = ["-fmad=false"]
 # sources compiled as several objects, one nvcc process each, all started
 # with the others: egh_contact.cu's 14 dual kernels took 205 s as one
@@ -114,9 +120,16 @@ EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "shells", "att_pp", "att_pe", "att_pt", "att_ee", "att_rbd")
 _EGH_ARGS = [_P, _P, _L, _P, _P, _P, _P]
 _SIGNATURES.update({"stk_egh_" + f: _EGH_ARGS for f in EGH_FAMILIES})
+# kernel Y: the two halves of a PCG step
+_SIGNATURES.update({"stk_pcg_step1": [_P, _P, _P, _P, _P, _P, _L, _I, _D, _P],
+                    "stk_pcg_step2": [_P, _P, _P, _P, _P, _L, _I, _P]})
 # entry points without a floating-point operand: one symbol, no suffix
 _UNTYPED = {
     "stk_compact": [_P, _L, _I, _P, _P, _P, _P],
+    # kernel X: the conditional-node setter and the body captures
+    "stk_graph_set_cond": [ctypes.c_ulonglong, _P, _P],
+    "stk_graph_begin_body": [_P, _P, _I, _P, ctypes.POINTER(ctypes.c_ulonglong)],
+    "stk_graph_end_body": [_P],
 }
 
 
@@ -150,12 +163,14 @@ def _sources():
 
 
 def _flags(src: str) -> list:
-    extra = NO_FMA_FLAGS if os.path.basename(src).startswith(NO_FMA_PREFIX) else []
-    return NVCC_FLAGS + extra
+    base = os.path.basename(src)
+    no_fma = base.startswith(NO_FMA_PREFIX) or base in NO_FMA_SOURCES
+    return NVCC_FLAGS + (NO_FMA_FLAGS if no_fma else [])
 
 
 def _digest(files, flags=None) -> str:
-    flags = ARCH_FLAGS + NVCC_FLAGS + NO_FMA_FLAGS + [str(PARTS)] if flags is None else flags
+    flags = ARCH_FLAGS + NVCC_FLAGS + NO_FMA_FLAGS + [str(PARTS), str(NO_FMA_SOURCES)] \
+        if flags is None else flags
     h = hashlib.sha256(" ".join(flags).encode())
     for f in files:
         h.update(os.path.basename(f).encode())

@@ -7,7 +7,8 @@ arithmetic: the round-robin schedule of `_round_robin_rounds`, the same
 rotation angle and the same sweep count, in a (d, d, E) layout where every
 round is two full-tensor passes; `batched_eigh` takes exact `torch.linalg.eigh`
 when sweeps == 0 or d <= 3, exactly as `project.batched_eigh` does. On CUDA
-every d <= 16 goes through the kernel, and sweeps == 0 raises.
+every d <= 16 goes through the kernel (`pd_project`), 16 < d <= 64 through
+its one-warp-per-block layout (`pd_project_wide`), and sweeps == 0 raises.
 """
 from __future__ import annotations
 
@@ -17,6 +18,11 @@ import numpy as np
 import torch
 
 from . import build
+
+# the largest matrix of the kernel's four-warp layout (`pd_project`) and of
+# its one-warp layout (`pd_project_wide`)
+KERNEL_MAX_D = 16
+KERNEL_WIDE_MAX_D = 64
 
 
 def _round_robin_rounds(d: int):
@@ -62,6 +68,14 @@ def _round_tables(d: int):
 
 
 @functools.lru_cache(maxsize=None)
+def _round_tables_on(d: int, device: torch.device):
+    """_round_tables as tensors on `device`, made once (a copy from the host
+    cannot be captured into a CUDA graph)."""
+    return [tuple(torch.as_tensor(x, device=device) for x in t)
+            for t in _round_tables(d)]
+
+
+@functools.lru_cache(maxsize=None)
 def _partner_table(d: int, device: torch.device) -> torch.Tensor:
     """(n_rounds, d) int32: the partner of each row per round (itself for a
     bye) — the kernel's copy of the schedule."""
@@ -87,8 +101,7 @@ def _jacobi_eigh(A: torch.Tensor, sweeps: int):
     dev = A.device
     A = torch.movedim(A, 0, -1)                      # (d, d, E)
     V = torch.eye(d, dtype=A.dtype, device=dev)[:, :, None].expand(d, d, E)
-    tabs = [tuple(torch.as_tensor(x, device=dev) for x in t)
-            for t in _round_tables(d)]
+    tabs = _round_tables_on(d, dev)
     for _ in range(sweeps):
         for p_idx, q_idx, perm, slot, sgn, paired in tabs:
             app = A[p_idx, p_idx]                    # (n_pairs, E)
@@ -131,6 +144,18 @@ def pd_project(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
     """Project a (E, d, d) stack of symmetric matrices to PD. Returns
     (H_projected, changed): changed marks the elements whose eigenvalues
     were modified (and that elem_mask allows); only those are rebuilt."""
+    return _project(H, eps, mirroring, elem_mask, jacobi_sweeps, KERNEL_MAX_D,
+                    "pd_project")
+
+
+def pd_project_wide(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
+                    jacobi_sweeps: int = 0):
+    """pd_project for 16 < d <= 64: kernel C with one warp per block."""
+    return _project(H, eps, mirroring, elem_mask, jacobi_sweeps, KERNEL_WIDE_MAX_D,
+                    "pd_project[wide]")
+
+
+def _project(H, eps, mirroring, elem_mask, jacobi_sweeps, max_d, site):
     if H.dim() != 3 or H.shape[1] != H.shape[2]:
         raise ValueError(f"pd_project: expected (E, d, d), got {tuple(H.shape)}")
     if H.device.type == "cpu":
@@ -139,8 +164,8 @@ def pd_project(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
     if not jacobi_sweeps:
         raise ValueError("pd_project: exact eigh (jacobi_sweeps=0) is a CPU "
                          "path; the CUDA kernel needs jacobi_sweeps > 0")
-    if d > 16:
-        raise ValueError(f"pd_project: d={d} exceeds the kernel's 16")
+    if d > max_d:
+        raise ValueError(f"pd_project: d={d} exceeds the kernel's {max_d}")
     build.require_cuda("pd_project", H)
     mask = None
     if elem_mask is not None:
@@ -157,5 +182,5 @@ def pd_project(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
             None if mask is None else mask.data_ptr(), out.data_ptr(),
             changed.data_ptr(), build.stream_ptr(H.device))
     build.check_status("pd_project", rc)
-    build.count_launch("pd_project")
+    build.count_launch(site)
     return out, changed.bool()

@@ -54,6 +54,7 @@ from ..ops.compact import compact
 from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
 from ..ops.segment_reduce import Csr, build_csr, segment_reduce
 from .potential import PotentialFamily
+from .program import EagerControl
 
 # Total energies accumulate in f64 even when the element math runs f32: the
 # Armijo test compares energy DIFFERENCES of order beta*g.du, which f32
@@ -115,8 +116,10 @@ class Evaluators:
     """Evaluation closures for a fixed family set and block count (the
     counterpart of the object `stark_tpu`'s make_evaluators returns).
 
-    `host_syncs` counts the device->host reads the solve makes through
-    `to_host` (every loop exit test is one)."""
+    `host_syncs` counts the device->host reads the staged solve makes
+    through `to_host` (the fused solve makes none: its tests are device
+    predicates of solver/program.py's control). While `forbid_reads` is
+    set (a strict EagerControl runs a body), `to_host` raises."""
 
     def __init__(self, families: List[PotentialFamily], n_blocks: int):
         self.fam_by_name = {f.name: f for f in families}
@@ -127,17 +130,16 @@ class Evaluators:
         self.dyn_arity = max((f.arity for f in families if _is_dyn(f.name)),
                              default=1)
         self.host_syncs = 0
+        self.forbid_reads = 0
 
     # ------------------------------------------------------------------
     def to_host(self, x: torch.Tensor):
         """Python value of a 0-d tensor (one device->host sync)."""
+        if self.forbid_reads:
+            raise RuntimeError("Evaluators.to_host: a host read inside a body "
+                               "of the fused solve's device program")
         self.host_syncs += 1
         return x.item()
-
-    def to_host_vec(self, x: torch.Tensor):
-        """A small tensor on the host as numpy (one device->host sync)."""
-        self.host_syncs += 1
-        return x.cpu().numpy()
 
     # ------------------------------------------------------------------
     # topology
@@ -447,13 +449,16 @@ class Evaluators:
         return D4.reshape(N1, N1, 3, 3).permute(2, 0, 3, 1).reshape(3 * N1, 3 * N1)
 
     def ns_refresh(self, M_prev, H_cat, topo: Topology, warm_sweeps: int = 1,
-                   cold_sweeps: int = 34, pool: Optional[LivePool] = None):
+                   cold_sweeps: int = 34, pool: Optional[LivePool] = None,
+                   ctl=None):
         """Newton-Schulz tracking of the dense-inverse preconditioner:
         M' = M + M(I - Hs M) on the Jacobi-SCALED assembled Hessian, warm
         from the carried M; a quality probe falls back to the cold start
         Ms0 = I/||Hs||_inf with `cold_sweeps` doublings when the warm seed
-        has diverged. Returns (M unscaled, q = max|I - Hs Ms| of the last
-        sweep, was_cold). Full f32 GEMMs: the caller keeps TF32 off."""
+        has diverged (`ctl.if_`: an IF node of the fused solve's graph;
+        without a ctl, an EagerControl reading through to_host). Returns
+        (M unscaled, q = max|I - Hs Ms| of the last sweep, was_cold). Full
+        f32 GEMMs: the caller keeps TF32 off."""
         Hp = self.assemble_dense_scatter(H_cat, topo, pool)
         n = Hp.shape[0]
         dg = torch.diagonal(Hp)
@@ -473,11 +478,16 @@ class Evaluators:
         for _ in range(warm_sweeps):
             Ms, q = sweep(Ms)
         bad = torch.logical_not(torch.isfinite(q)) | (q > 0.9)
-        if self.to_host(bad):
+
+        def cold():
             norm_inf = torch.max(torch.sum(torch.abs(Hs), dim=1))
-            Ms = eye / torch.clamp_min(norm_inf, 1.0)
+            Mc = eye / torch.clamp_min(norm_inf, 1.0)
             for _ in range(cold_sweeps):
-                Ms, q = sweep(Ms)
+                Mc, qc = sweep(Mc)
+            Ms.copy_(Mc)
+            q.copy_(qc)
+
+        (ctl or EagerControl(read=self.to_host)).if_(bad, cold)
         M = Ms * s[:, None] * s[None, :]
         finite = torch.isfinite(q)
         M = torch.where(finite, M, torch.diag(s * s))

@@ -1,13 +1,23 @@
 """The fused projected-Newton solve of one time step, with frozen contact
-shells.
+shells, as one device program (K12).
 
 Port of `stark_tpu/solver/fused.py`: energy, gradient and Hessian, PD
 projection (static families per family, the live contact pool at d=15),
 matrix-free BDPCG (block-Jacobi, or the persistent dense Newton-Schulz
 inverse for small scenes), and the four line-search stages [cap] [max]
-[inv] [bt]. The JAX program is one `lax.while_loop`; here it is a Python
-loop with the same carry, the same outcome codes, the same 16-float stats
-vector and the same count keys.
+[inv] [bt]. The JAX program is one `lax.while_loop` with `lax.cond`s and
+nested loops; here it is written once over a Control (solver/program.py):
+the Newton loop, PCG, [inv] and [bt] are `ctl.while_`, the broad and pair
+rebuilds, the initial-state test and the Newton-Schulz refresh (and its
+cold start) `ctl.if_`. On the card the program is captured into one CUDA
+graph whose loops are WHILE nodes and whose conditionals are IF nodes
+(kernel X), replayed once per solve; the host reads the result once, at
+the solve's end. On the CPU the same program runs under EagerControl. The
+carry is JAX's Carry (:244-273): fixed shapes, updated in place; the
+contact and friction tables stay at their capacities, as JAX keeps them
+(rows past a count are inactive padding, which the element kernels
+evaluate to zero); the outcome codes, the 16-float stats vector and the
+count keys are JAX's.
 
 Contact (`engine` not None) uses the JAX package's twin-range frozen
 candidate topology:
@@ -29,14 +39,6 @@ the friction tables are built once per solve from the dt = 0 positions
 vector, and they join every Newton iteration's tables; their rows enter
 the live pool with the contact rows.
 
-Host syncs (`ev.to_host`, counted in `host_syncs`): one per loop exit test,
-per CG iteration, per Armijo probe and per [inv] trial, plus the two shell
-guards (need_b, need_p) per Newton iteration with contact, one read of
-the pair tables' counts per pair build and one of the friction tables'
-counts per solve (the tables are cut to their live rows: JAX evaluates
-every padded row, the port only the real pairs). Removing them (CUDA graphs
-with a device-side done flag) is ROADMAP K12.
-
 Result codes (match SolverReturn):
   1 Successful, 2 InvalidInitialState, 3 TooManyIterations,
   4 TooManyArmijoIterations, 5 LinearSystemSolveFailure (or no-descent),
@@ -44,10 +46,13 @@ Result codes (match SolverReturn):
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 
 from . import assembly, project
 from .pcg import solve_pcg
+from .program import Program, flatten
 
 BASE_COUNT_KEYS = ["hvp_pool", "direct_slots"]
 
@@ -69,18 +74,57 @@ def uses_friction(engine) -> bool:
     return engine is not None and engine.friction_enabled_now()
 
 
-def _count_key(table_name: str) -> str:
-    """The count key of a family table: contact_<stem> -> <stem>,
-    friction_<stem> -> f_<stem>."""
-    kind, stem = table_name.split("_", 1)
-    return stem if kind == "contact" else "f_" + stem
+class FusedSolve:
+    """The fused solve of build_fused_solve: f(u0, static_data, glob,
+    params, M0, topo) -> (u, packed (16,) float32 stats, counts (n_keys,)
+    int32, M). Each call binds its arguments to the Program of its key (a
+    CUDA graph on the card, captured at the key's first call; the program
+    under EagerControl on the CPU or with `eager`), keeping one Program:
+    a new key (a grown capacity, other shapes) releases the old one. The
+    outputs of a graph are its own buffers: the caller clones what it
+    keeps."""
+
+    def __init__(self, program, key_of, eager: bool = False, strict_ev=None):
+        self.program = program
+        self._key_of = key_of
+        self.eager = eager
+        self._strict_ev = strict_ev
+        self._bound = None
+        self._key = None
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self.driver_reads = 0
+
+    def __call__(self, u0, static_data, glob, params, M0, topo):
+        args = (u0, static_data, glob, params, M0, topo)
+        key = (flatten(args)[1], self._key_of())
+        if self._bound is None or key != self._key:
+            self.release()
+            graph = u0.device.type == "cuda" and not self.eager
+            self._bound = Program(self.program, args, graph=graph,
+                                  strict_ev=self._strict_ev)
+            self._key = key
+            if graph:
+                self.captures += 1
+                self.capture_seconds += self._bound.capture_seconds
+        reads0 = self._bound.driver_reads
+        out = self._bound(args)
+        self.driver_reads += self._bound.driver_reads - reads0
+        return out
+
+    def release(self):
+        if self._bound is not None:
+            self._bound.release()
+        self._bound = None
+        self._key = None
 
 
-def build_fused_solve(nm, engine=None):
+def build_fused_solve(nm, engine=None, eager: bool = False, strict: bool = False):
     """Build the fused solve closed over the NewtonsMethod evaluators and
-    the contact engine (or None). Returns (f, count_keys) with
-    f(u0, static_data, glob, params, M0, topo) -> (u, packed (16,) float32
-    stats, counts (n_keys,) int32, M)."""
+    the contact engine (or None). Returns (FusedSolve, count_keys). `eager`
+    (internal: the smoke's and the card tests' comparison) runs the program
+    under EagerControl on the card too; `strict` makes a host read inside a
+    body raise."""
 
     energy = nm._energy
     egh = nm._energy_grad_hess
@@ -96,8 +140,6 @@ def build_fused_solve(nm, engine=None):
     n_blocks = nm.n_blocks
     use_direct = (s.projection_mode.name == "ProjectedNewton"
                   and n_blocks <= nm._direct_max_blocks)
-    to_host = ev.to_host
-    to_host_vec = ev.to_host_vec
     use_ff = uses_friction(engine)
     count_keys = count_keys_of(engine, use_ff)
     key_slot = {k: i for i, k in enumerate(count_keys)}
@@ -121,7 +163,13 @@ def build_fused_solve(nm, engine=None):
             m = torch.maximum(m, torch.max(mv + mw * r_max))
         return m
 
-    def fused_solve(u0, static_data, glob, params, M0, topo):
+    def key_of():
+        """What the program reads as Python values besides its arguments:
+        the engine's capacities, the settings and the projection's sweeps."""
+        caps = () if engine is None else tuple(sorted(engine._caps.items()))
+        return (caps, repr(sorted(vars(s).items())), nm._jacobi_sweeps)
+
+    def fused_solve(u0, static_data, glob, params, M0, topo, ctl):
         dt = glob["dt"]
         ftype = u0.dtype
         dev = u0.device
@@ -135,14 +183,29 @@ def build_fused_solve(nm, engine=None):
         def fz():
             return torch.zeros((), dtype=ftype, device=dev)
 
-        counts_max = torch.zeros((len(count_keys),), dtype=torch.int32, device=dev)
+        def zb():
+            return torch.zeros((), dtype=torch.bool, device=dev)
 
-        def fold(cmax, counts):
+        # the carry (stark_tpu fused.py:244-273), updated in place
+        c = SimpleNamespace(
+            u=u0.clone(), it=zi(), res0=fz(), done=zb(), code=zi(), cg_total=zi(),
+            ls_cap=zi(), ls_max=zi(), ls_inv=zi(), ls_bt=zi(), n_proj=zi(),
+            n_hess=zi(), res=fz(), E_prev=torch.zeros((), dtype=torch.float64, device=dev),
+            stall=zi(), counts_max=torch.zeros((len(count_keys),), dtype=torch.int32,
+                                               device=dev),
+            slack_b=fz(), du_prev=params["du_prior"].to(ftype).clone(), force_rb=zb(),
+            n_broad_rb=zi(), n_pair_rb=zi(),
+            M=M0.clone() if use_direct else torch.zeros((0, 0), dtype=ftype, device=dev),
+            m_q=torch.full((), 1e9, dtype=ftype, device=dev), n_cold=zi(),
+            init_bad=zb())
+        # what the shell rebuilds bind (read only after their IF has run)
+        sh = SimpleNamespace(bcands=None, icands={}, data=None, egh_csr=None)
+
+        def fold(counts):
             # max, not set (a key may come from several builds)
             for k, v in counts.items():
                 i = key_slot[k]
-                cmax[i] = torch.maximum(cmax[i], v.to(torch.int32))
-            return cmax
+                c.counts_max[i] = torch.maximum(c.counts_max[i], v.to(torch.int32))
 
         if engine is not None:
             eng_state = params["eng_state"]
@@ -157,26 +220,14 @@ def build_fused_solve(nm, engine=None):
                             for a, b in zip((Vs, Vr), Vpair) if a is not None])
             return torch.sqrt(torch.clamp_min(torch.max(d2), 0.0))
 
-        def trim_tables(tables, cnt):
-            """The family tables cut to their live rows (one host read of
-            their counts per build): empty families drop out, so energies,
-            derivatives and the live pool run over real pairs only. Rows
-            past the count are inactive padding, so the values are those of
-            the full tables."""
-            names = list(tables)
-            n = to_host_vec(torch.stack([cnt[_count_key(k)] for k in names]))
-            out = {}
-            for name, c in zip(names, n.tolist()):
-                fd = tables[name]
-                k = min(int(c), fd["conn"].shape[0])
-                if k > 0:
-                    out[name] = {"conn": fd["conn"][:k],
-                                 "rows": {r: v[:k] for r, v in fd["rows"].items()}}
-            return out
+        def copy_pair(dst, src):
+            for d, v in zip(dst, src):
+                if d is not None:
+                    d.copy_(v)
 
         def isect_hit(u, icands):
             if engine is None or not isect_on:
-                return torch.zeros((), dtype=torch.bool, device=dev)
+                return zb()
             Vs, Vr = world(u)
             return engine.isect_hit(Vs, Vr, icands)
 
@@ -186,10 +237,9 @@ def build_fused_solve(nm, engine=None):
             # bodies at t0, q0), as the reference's before_time_step pass;
             # mu and the stiffness are glob arguments
             Vs0, Vr0 = engine.step_start_world(eng_state)
-            ff_tables, ff_counts = engine.friction_tables(
+            friction_tabs, ff_counts = engine.friction_tables(
                 Vs0, Vr0, th, glob["mu_mat"], glob["contact_k"])
-            counts_max = fold(counts_max, ff_counts)
-            friction_tabs = trim_tables(ff_tables, ff_counts)
+            fold(ff_counts)
 
         def full_data(tables):
             data = dict(static_data)
@@ -197,85 +247,73 @@ def build_fused_solve(nm, engine=None):
             data.update(friction_tabs)
             return data
 
-        u = u0
-        it = 0
-        res0 = fz()
-        done = False
-        code = zi()
-        cg_total = 0
-        ls_cap = zi()
-        ls_max = zi()
-        ls_inv = 0
-        ls_bt = 0
-        n_proj = zi()
-        n_hess = zi()
-        res = fz()
-        E_prev = torch.zeros((), dtype=torch.float64, device=dev)
-        stall = zi()
-        du_prev = torch.as_tensor(params["du_prior"], dtype=ftype, device=dev)
-        M = M0 if use_direct else torch.zeros((0, 0), dtype=ftype, device=dev)
-        m_q = torch.full((), 1e9, dtype=ftype, device=dev)
-        n_cold = zi()
-        n_broad_rb = 0
-        n_pair_rb = 0
-        force_rb = torch.zeros((), dtype=torch.bool, device=dev)
-        bcands = icands = Vb = Vp = None
-        slack_b = fz()
-        tables = {}
-        data = full_data({})
-        egh_csr = None
+        if engine is not None:
+            # the shells' build positions (zeros until iteration 0 builds)
+            V0 = world(c.u)
+            Vb = tuple(None if v is None else torch.zeros_like(v) for v in V0)
+            Vp = tuple(None if v is None else torch.zeros_like(v) for v in V0)
+        else:
+            sh.data = full_data({})
 
-        while not done and it < params["max_iterations"]:
+        def newton_body():
+            u = c.u
+            first = c.it == 0
             # ---- shell validity guards + conditional rebuilds ----
-            init_bad = torch.zeros((), dtype=torch.bool, device=dev)
             disp_b = fz()
             if engine is not None:
                 Vs, Vr = world(u)
-                if it == 0:
-                    need_b = True
-                else:
-                    disp_b = disp_from(Vb, Vs, Vr)
-                    need_b = bool(to_host(force_rb | (disp_b > 0.45 * slack_b)))
-                if need_b:
-                    slack_b = torch.clamp(
-                        2.5 * dt * torch.clamp_min(du_prev, params["du_floor"]),
-                        params["slack_broad_min"], params["slack_broad_max"])
-                    bcands, icands, cnt = engine.broad_fn(Vs, Vr, th, slack_b, slack_p)
-                    Vb = (Vs, Vr)
-                    counts_max = fold(counts_max, cnt)
-                    disp_b = fz()
-                need_p = need_b or bool(to_host(
-                    disp_from(Vp, Vs, Vr) > 0.45 * slack_p))
-                if need_p:
-                    tables, cnt = engine.pairs_fn(Vs, Vr, th, bcands, slack_p)
-                    Vp = (Vs, Vr)
-                    counts_max = fold(counts_max, cnt)
-                    data = full_data(trim_tables(tables, cnt))
-                    egh_csr = ev.egh_csr(data)
-                if it == 0:
-                    init_bad = isect_hit(u, icands)
-            else:
-                need_b = need_p = it == 0
+                disp_b = disp_from(Vb, Vs, Vr)
+                need_b = first | c.force_rb | (disp_b > 0.45 * c.slack_b)
 
-            E0, aux, grad, hess = egh(u, data, glob, topo, egh_csr)
+                def rebuild_broad():
+                    c.slack_b.copy_(torch.clamp(
+                        2.5 * dt * torch.clamp_min(c.du_prev, params["du_floor"]),
+                        params["slack_broad_min"], params["slack_broad_max"]))
+                    sh.bcands, sh.icands, cnt = engine.broad_fn(Vs, Vr, th, c.slack_b,
+                                                                slack_p)
+                    copy_pair(Vb, (Vs, Vr))
+                    fold(cnt)
+
+                ctl.if_(need_b, rebuild_broad)
+                disp_b = torch.where(need_b, fz(), disp_b)
+                need_p = need_b | (disp_from(Vp, Vs, Vr) > 0.45 * slack_p)
+
+                def rebuild_pairs():
+                    tables, cnt = engine.pairs_fn(Vs, Vr, th, sh.bcands, slack_p)
+                    copy_pair(Vp, (Vs, Vr))
+                    fold(cnt)
+                    sh.data = full_data(tables)
+                    sh.egh_csr = ev.egh_csr(sh.data)
+
+                ctl.if_(need_p, rebuild_pairs)
+                if isect_on:
+                    def initial_state_test():
+                        c.init_bad.copy_(isect_hit(u, sh.icands))
+
+                    ctl.if_(first, initial_state_test)
+            else:
+                need_b = need_p = first
+            data = sh.data
+
+            E0, aux, grad, hess = egh(u, data, glob, topo, sh.egh_csr)
             # rounding-noise floors (quadrature form, see assembly.py)
             noise = (f_eps * torch.sqrt(aux["e_nsq"])).to(ftype)
             res = torch.max(torch.abs(grad))
-            res0 = res if it == 0 else res0
+            c.res0.copy_(torch.where(first, res, c.res0))
 
-            past_min = it >= params["min_iterations"]
-            stalled = (it > 0) & ((E_prev - E0) < noise.to(E0.dtype))
-            stall = torch.where(stalled, stall + 1, zi())
+            past_min = c.it >= params["min_iterations"]
+            stalled = (c.it > 0) & ((c.E_prev - E0) < noise.to(E0.dtype))
+            c.stall.copy_(torch.where(stalled, c.stall + 1, zi()))
             vscale = torch.maximum(torch.max(torch.abs(u)), x_scale / dt)
             g_floor = f_eps * vscale * aux["hsum"]
             res_ok = torch.all(torch.abs(grad) <= torch.clamp_min(
                 4.0 * g_floor, params["residual_tolerance_abs"]))
             conv = (res < params["bailout_residual"]) \
                 | (past_min & res_ok) \
-                | (past_min & (it > 0)
-                   & (res / torch.clamp_min(res0, 1e-30)
+                | (past_min & (c.it > 0)
+                   & (res / torch.clamp_min(c.res0, 1e-30)
                       < params["residual_tolerance_rel"])) \
-                | (past_min & (stall >= 2))
+                | (past_min & (c.stall >= 2))
 
             # PD projection: static families per family (PSD families
             # skipped); the contact families through their live pool
@@ -286,8 +324,8 @@ def build_fused_solve(nm, engine=None):
             if dyn_names:
                 conn_live, H_live, live_valid, live_cnt = ev.live_select(
                     ev.dyn_conn_cat(data), ev.dyn_hess_cat(hess), params["pool_cap"])
-                counts_max[key_slot["hvp_pool"]] = torch.maximum(
-                    counts_max[key_slot["hvp_pool"]], live_cnt)
+                i_pool = key_slot["hvp_pool"]
+                c.counts_max[i_pool] = torch.maximum(c.counts_max[i_pool], live_cnt)
                 n_live = torch.clamp_max(live_cnt, params["pool_cap"])
             if do_project:
                 hess_stat_p, n_proj_it = project.project_all(
@@ -314,14 +352,18 @@ def build_fused_solve(nm, engine=None):
                 # persistent dense-inverse preconditioner tracked by
                 # Newton-Schulz sweeps, refreshed when the pair shell is
                 # (re)built or the last quality probe says it drifted
-                need_m = need_p or bool(to_host(m_q > 0.5))
-                if need_m:
-                    M, m_q, was_cold = ev.ns_refresh(M, H_cat, topo, pool=pool)
-                    n_cold = n_cold + was_cold.to(torch.int32)
-                m_good = m_q < 0.5
+                def refresh_m():
+                    M, m_q, was_cold = ev.ns_refresh(c.M, H_cat, topo, pool=pool,
+                                                     ctl=ctl)
+                    c.M.copy_(M)
+                    c.m_q.copy_(m_q)
+                    c.n_cold.add_(was_cold.to(torch.int32))
 
-                def Minv(r, M=M, m_good=m_good):
-                    qd = ev.apply_dense_perm(M, r)
+                ctl.if_(need_p | (c.m_q > 0.5), refresh_m)
+                m_good = c.m_q < 0.5
+
+                def Minv(r):
+                    qd = ev.apply_dense_perm(c.M, r)
                     qj = assembly.apply_preconditioner(Dinv, r)
                     return torch.where(m_good, qd, qj)
             else:
@@ -333,8 +375,7 @@ def build_fused_solve(nm, engine=None):
             abs_tol = torch.clamp_min(forcing, params["cg_abs_tolerance"])
             cg = solve_pcg(lambda p: ev.hvp_bucket(p, H_cat, topo, pool), Minv, -grad,
                            abs_tol, params["cg_rel_tolerance"],
-                           s.cg_max_iterations, s.cg_stop_on_indefiniteness,
-                           to_host=to_host)
+                           s.cg_max_iterations, s.cg_stop_on_indefiniteness, ctl=ctl)
             du = cg.x
             dug = torch.sum(du * grad)
             du_max = torch.max(torch.abs(du))
@@ -355,27 +396,32 @@ def build_fused_solve(nm, engine=None):
             # forces a broad rebuild at the next iteration
             if engine is not None:
                 reach = dt * reach_du * retraction
-                budget = torch.clamp_min(0.45 * slack_b - disp_b, 0.0)
+                budget = torch.clamp_min(0.45 * c.slack_b - disp_b, 0.0)
                 max_step = torch.where(reach > budget,
                                        budget / torch.clamp_min(reach, 1e-30),
                                        torch.ones_like(reach))
                 maxed = max_step < 1.0
                 retraction = retraction * max_step
-                force_rb = maxed
             else:
-                maxed = torch.zeros((), dtype=torch.bool, device=dev)
+                maxed = zb()
             du_ls = du * retraction
-            step = torch.ones((), dtype=ftype, device=dev)
+            # the line search's carry
+            ls = SimpleNamespace(step=torch.ones((), dtype=ftype, device=dev),
+                                 inv_it=zi(), bt_it=zi())
 
             # [inv]: halve until no frozen candidate intersects
-            inv_it = 0
             inv_valid = torch.ones((), dtype=torch.bool, device=dev)
             if engine is not None and isect_on:
-                inv_valid = torch.logical_not(isect_hit(u + step * du_ls, icands))
-                while inv_it < max_inv and not bool(to_host(inv_valid)):
-                    step = step * 0.5
-                    inv_it += 1
-                    inv_valid = torch.logical_not(isect_hit(u + step * du_ls, icands))
+                inv_valid = torch.logical_not(isect_hit(u + ls.step * du_ls, sh.icands))
+
+                def inv_body():
+                    ls.step.mul_(0.5)
+                    ls.inv_it.add_(1)
+                    inv_valid.copy_(torch.logical_not(
+                        isect_hit(u + ls.step * du_ls, sh.icands)))
+
+                ctl.while_(lambda: torch.logical_not(inv_valid) & (ls.inv_it < max_inv),
+                           inv_body)
             inv_fail = torch.logical_not(inv_valid)
 
             # [bt] Armijo over the frozen tables
@@ -383,9 +429,8 @@ def build_fused_solve(nm, engine=None):
                 return energy(u + step * du_ls, data, glob)
 
             expected = beta * dug * retraction
-            bt_it = 0
-            bt_fail = torch.zeros((), dtype=torch.bool, device=dev)
-            bt_conv = torch.zeros((), dtype=torch.bool, device=dev)
+            bt_fail = zb()
+            bt_conv = zb()
             if enable_bt:
                 # JAX re-evaluates the reference energy with the trial
                 # energies' program (XLA fuses the two programs differently);
@@ -394,18 +439,20 @@ def build_fused_solve(nm, engine=None):
                 E0a = E0
                 disp1 = dt * reach_du * retraction
                 step_floor = f_eps * x_scale / torch.clamp_min(disp1, 1e-30)
+                E1 = energy_at(ls.step)
 
-                def bt_more(step, j, E1):
-                    return (E1 >= E0a + expected * step + noise) \
-                        & (j < max_bt) & (step > step_floor)
+                def bt_more():
+                    return (E1 >= E0a + expected * ls.step + noise) \
+                        & (ls.bt_it < max_bt) & (ls.step > step_floor)
 
-                E1 = energy_at(step)
-                while to_host(bt_more(step, bt_it, E1)):
-                    step = step * 0.5
-                    bt_it += 1
-                    E1 = energy_at(step)
-                bt_exhausted = (E1 >= E0a + expected * step + noise) \
-                    & ((bt_it >= max_bt) | (step <= step_floor))
+                def bt_body():
+                    ls.step.mul_(0.5)
+                    ls.bt_it.add_(1)
+                    E1.copy_(energy_at(ls.step))
+
+                ctl.while_(bt_more, bt_body)
+                bt_exhausted = (E1 >= E0a + expected * ls.step + noise) \
+                    & ((ls.bt_it >= max_bt) | (ls.step <= step_floor))
                 # f32: exhausting the noise-tolerant Armijo means the
                 # descent claim is cancellation noise -> converged at dtype
                 # resolution; f64 keeps the reference's failure semantics
@@ -414,9 +461,10 @@ def build_fused_solve(nm, engine=None):
                 else:
                     bt_fail = bt_exhausted
 
-            u_new = u + step * du_ls
+            u_new = u + ls.step * du_ls
 
             # outcome resolution, in the reference's order of checks
+            init_bad = c.init_bad & first
             done_t = init_bad | conv | lin_fail | step_conv | dec_conv \
                 | inv_fail | bt_fail | bt_conv
             code = torch.where(
@@ -426,40 +474,42 @@ def build_fused_solve(nm, engine=None):
                             inv_fail, 6, torch.where(bt_fail, 4, 0))))
             ).to(torch.int32)
             keep = init_bad | conv | step_conv | dec_conv | bt_conv | lin_fail
-            u = torch.where(keep, u, u_new)
+            c.u.copy_(torch.where(keep, u, u_new))
 
-            cg_total += cg.n_iterations
-            ls_cap = ls_cap + capped.to(torch.int32)
-            ls_max = ls_max + maxed.to(torch.int32)
-            ls_inv += inv_it
-            ls_bt += bt_it
-            n_proj = n_proj + n_proj_it
-            n_hess = n_hess + n_hess_it
-            E_prev = E0
-            du_prev = reach_du
-            n_broad_rb += int(need_b)
-            n_pair_rb += int(need_p)
-            it += 1
-            done = bool(to_host(done_t))
+            c.cg_total.add_(cg.n_iterations)
+            c.ls_cap.add_(capped.to(torch.int32))
+            c.ls_max.add_(maxed.to(torch.int32))
+            c.ls_inv.add_(ls.inv_it)
+            c.ls_bt.add_(ls.bt_it)
+            c.n_proj.add_(n_proj_it)
+            c.n_hess.add_(n_hess_it)
+            c.res.copy_(res)
+            c.E_prev.copy_(E0)
+            c.du_prev.copy_(reach_du)
+            c.force_rb.copy_(maxed)
+            c.n_broad_rb.add_(need_b.to(torch.int32))
+            c.n_pair_rb.add_(need_p.to(torch.int32))
+            c.code.copy_(code)
+            c.done.copy_(done_t)
+            c.it.add_(1)
 
-        if not done:
-            code = torch.full((), 1 if s.max_iterations_as_success else 3,
-                              dtype=torch.int32, device=dev)
+        ctl.while_(lambda: torch.logical_not(c.done) & (c.it < params["max_iterations"]),
+                   newton_body)
+
+        # the loop ran out without an outcome -> TooManyIterations (or
+        # success if so configured)
+        code = torch.where(c.done, c.code, torch.full_like(
+            c.code, 1 if s.max_iterations_as_success else 3))
         # converged-state intersection test (EnergyFrictionalContact.cpp:25):
         # the final state lies inside the frozen candidates' budget
-        if engine is not None and isect_on:
-            code = torch.where((code == 1) & isect_hit(u, icands),
+        if engine is not None and isect_on and params["max_iterations"] > 0:
+            code = torch.where((code == 1) & isect_hit(c.u, sh.icands),
                                torch.full_like(code, 9), code)
-        f32 = torch.float32
+        packed = torch.stack([x.to(torch.float32).reshape(()) for x in (
+            code, c.it, c.cg_total, c.ls_cap, c.ls_max, c.ls_inv, c.ls_bt, c.n_proj,
+            c.n_hess, c.res, c.E_prev, c.du_prev, c.n_broad_rb, c.n_pair_rb, c.m_q,
+            c.n_cold)])
+        return c.u, packed, c.counts_max, c.M
 
-        def fv(x):
-            return torch.as_tensor(x, device=dev).to(f32).reshape(())
-
-        packed = torch.stack([
-            fv(code), fv(it), fv(cg_total), fv(ls_cap), fv(ls_max), fv(ls_inv),
-            fv(ls_bt), fv(n_proj), fv(n_hess), fv(res), fv(E_prev),
-            fv(du_prev), fv(n_broad_rb), fv(n_pair_rb), fv(m_q), fv(n_cold),
-        ])
-        return u, packed, counts_max, M
-
-    return fused_solve, count_keys
+    return FusedSolve(fused_solve, key_of, eager=eager,
+                      strict_ev=ev if strict else None), count_keys

@@ -4,13 +4,16 @@ staged host-driven solver.
 Port of `stark_tpu/solver/newton.py`. The fused path
 (`NewtonsMethod.__init__`, :77-178, and `_solve_fused`, :252-460) builds
 the evaluators, sizes the contact engine's slacks and the live-pool
-capacity, runs the fused solve of one time step (solver/fused.py), pulls the
-DOFs, the 16-float stats vector and the count vector back in one transfer,
-and maps the outcome code to a `SolverReturn` with the same logger keys. A
-count over its capacity (contact lists, friction tables, live pool) bumps
-the capacity and solves the step again from the same state (logger key
-`fused_retraces`, named after the JAX package's re-trace); the capacities
-are kept in memory only (a persistent cache is ROADMAP Queue 1 P10).
+capacity, runs the fused solve of one time step (solver/fused.py: on the
+card one CUDA-graph replay, captured at the first solve of its key), pulls
+the DOFs, the 16-float stats vector and the count vector back in one
+transfer (`host_syncs`: one per solve, plus one per re-solve), and maps
+the outcome code to a `SolverReturn` with the same logger keys. A count
+over its capacity (contact lists, friction tables, live pool) bumps the
+capacity and solves the step again from the same state (logger key
+`fused_retraces`, named after the JAX package's re-trace; on the card a new
+capture); the capacities are kept in memory only (a persistent cache is
+ROADMAP Queue 1 P10).
 
 Lagged friction: the fused solve builds the step's friction tables itself
 while `ContactEngine.friction_enabled_now`; the solve is rebuilt when that
@@ -46,9 +49,12 @@ from ..core.logger import Logger, OutputSink
 from ..core.settings import LinearSolver, NewtonSettings, ProjectionToPD, Verbosity
 from . import assembly, project
 from .pcg import solve_pcg
+from .program import EagerControl
 
 # set to "1" to send every solve through the staged solver
 NO_FUSED_ENV = "STARK_TPU_TORCH_NO_FUSED"
+
+_NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 class SolverReturn(Enum):
@@ -211,6 +217,8 @@ class NewtonsMethod:
         from .fused import build_fused_solve, uses_friction
 
         engine = self._engine()
+        if self._fused is not None:
+            self._fused.release()
         self._fused_use_ff = uses_friction(engine)
         self._fused, self._fused_count_keys = build_fused_solve(self, engine)
 
@@ -241,7 +249,8 @@ class NewtonsMethod:
             "step_cap": min(s.step_cap, float(torch.finfo(torch.float32).max)),
             "cg_abs_tolerance": s.cg_abs_tolerance,
             "cg_rel_tolerance": s.cg_rel_tolerance,
-            "du_prior": self._du_prior,
+            # an input of the program, not a captured constant
+            "du_prior": torch.as_tensor(self._du_prior, dtype=dtype, device=u0.device),
         }
         if engine is not None:
             params.update(self._engine_params(engine, dtype))
@@ -253,29 +262,41 @@ class NewtonsMethod:
             self._M_dev = torch.zeros((n, n), dtype=dtype, device=u0.device)
 
         syncs0 = self._ev.host_syncs
+        driver0 = self._fused.driver_reads
+        reads = 0
         keys = self._fused_count_keys
+        n_u = u0.numel() * u0.element_size()
         with self.logger.time("fused_solve"):
             while True:
                 params["pool_cap"] = self._pool_cap
                 u_out, packed, counts_dev, M_out = self._fused(
                     u0, data_static, glob, params, self._M_dev, self._topo)
-                # the one transfer per solve: the DOFs, stats and counts
-                u_np = u_out.cpu().numpy()
-                packed = packed.cpu().numpy()
-                counts = counts_dev.cpu().numpy()
+                # the one read per solve: the DOFs, stats and counts as
+                # bytes in one transfer
+                raw = torch.cat([u_out.reshape(-1).view(torch.uint8),
+                                 packed.view(torch.uint8),
+                                 counts_dev.view(torch.uint8)]).cpu().numpy()
+                reads += 1
+                u_np = raw[:n_u].view(_NP_DTYPE[dtype]).reshape(tuple(u0.shape))
+                packed = raw[n_u:n_u + 64].view(np.float32)
+                counts = raw[n_u + 64:].view(np.int32)
                 over = self._bump_caps(engine, keys, counts)
                 if not over:
                     break
                 # a capacity overflowed: solve the step again from the same
-                # state with the larger capacities (and the same warm
-                # preconditioner seed, so the result equals a run that
-                # started with them)
+                # state with the larger capacities (a new capture, and the
+                # same warm preconditioner seed, so the result equals a run
+                # that started with them)
                 self.logger.add("fused_retraces", 1)
                 self.output.print_with_new_line(
                     "fused re-solve: cap overflow on %s"
                     % ", ".join("%s=%d" % kc for kc in over))
-            self._M_dev = M_out
-        self.stats.host_syncs = self._ev.host_syncs - syncs0 + 1
+            # the program's outputs are its buffers: the next solve
+            # overwrites them
+            u_out = u_out.clone()
+            self._M_dev = M_out.clone()
+        self.stats.host_syncs = self._ev.host_syncs - syncs0 + reads
+        self.logger.add_and_append("driver_reads", self._fused.driver_reads - driver0)
         self._last_counts = {k: int(c) for k, c in zip(keys, counts)}
 
         code = int(packed[0])
@@ -641,7 +662,7 @@ class NewtonsMethod:
         return solve_pcg(hvp,
                          lambda r: assembly.apply_preconditioner(Dinv, r),
                          -grad, abs_tol, rel_tol, max_iter, stop_on_indef,
-                         to_host=ev.to_host)
+                         ctl=EagerControl(read=ev.to_host))
 
     def _direct_stage(self, grad, data, hess, pad=None):
         """DirectLLT (the rb_constraints tests use it for determinism,

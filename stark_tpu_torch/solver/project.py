@@ -4,10 +4,14 @@ Port of `stark_tpu/solver/project.py`: per-element symmetric
 eigendecomposition, eigenvalues below eps clamped to eps or mirrored to
 -lambda, and the matrix rebuilt (project_to_PD.cpp:12-48). The batched
 eigensolve and rebuild are kernel C (`ops.pd_project`, parallel-order
-cyclic Jacobi); its plain twin — `_jacobi_eigh`, or exact `torch.linalg.eigh`
-when `jacobi_sweeps=0` — is the CPU path. `project_all` serves the
-ProjectedNewton and ProjectOnDemand modes, `project_selective` (kernel C
-with an element mask) the Progressive mode.
+cyclic Jacobi; `pd_project_wide` for 16 < d <= 64); its plain twin —
+`_jacobi_eigh`, or exact `torch.linalg.eigh` when `jacobi_sweeps=0` — is
+the CPU path. On the card `jacobi_sweeps=0` also takes the twin's exact
+eigh, as stark_tpu/solver/project.py:116-119 does. `torch.linalg.eigh`
+(cuSOLVER) cannot be captured into a CUDA graph, so the fused solve's
+capture raises there with that cause (ROADMAP Queue 3). `project_all`
+serves the ProjectedNewton and ProjectOnDemand modes, `project_selective`
+(kernel C with an element mask) the Progressive mode.
 """
 from __future__ import annotations
 
@@ -15,8 +19,9 @@ from typing import Dict
 
 import torch
 
-from ..ops.pd_project import (_jacobi_eigh, _round_robin_rounds,  # noqa: F401
-                              batched_eigh, pd_project)
+from ..ops.pd_project import (KERNEL_MAX_D, _jacobi_eigh,  # noqa: F401
+                              _round_robin_rounds, batched_eigh, pd_project,
+                              pd_project_plain, pd_project_wide)
 
 
 def default_jacobi_sweeps(device: torch.device) -> int:
@@ -30,7 +35,18 @@ def project_family_to_pd(H, eps: float, mirroring: bool, elem_mask=None,
     (H_projected, changed) where changed marks elements whose eigenvalues
     were modified (for the `ph%` statistic). elem_mask restricts projection
     to selected elements."""
-    return pd_project(H.contiguous(), eps, mirroring, elem_mask, jacobi_sweeps)
+    H = H.contiguous()
+    if H.device.type == "cuda" and not jacobi_sweeps:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "project_family_to_pd: exact eigh (jacobi_sweeps=0) runs "
+                "torch.linalg.eigh (cuSOLVER), which cannot be captured into "
+                "the fused solve's CUDA graph; use jacobi_sweeps > 0 or the "
+                "staged solver (STARK_TPU_TORCH_NO_FUSED=1)")
+        return pd_project_plain(H, eps, mirroring, elem_mask, 0)
+    if H.shape[-1] > KERNEL_MAX_D:
+        return pd_project_wide(H, eps, mirroring, elem_mask, jacobi_sweeps)
+    return pd_project(H, eps, mirroring, elem_mask, jacobi_sweeps)
 
 
 def project_all(hess: Dict[str, torch.Tensor], eps: float, mirroring: bool,

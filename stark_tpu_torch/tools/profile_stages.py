@@ -15,15 +15,21 @@ Newton iteration and profiles one more time step:
   events;
 - the two kernels of one CG iteration (hvp_bucket + block3_apply): captured
   in a CUDA graph, so the time is the device's alone;
-- one CG iteration of the real `solve_pcg` loop, its host sync included;
-- with contact, also: the broad shell (broad_fn), the pair shell (pairs_fn
-  and the host read that trims its tables), one [inv] trial (world
+- one CG iteration of `solve_pcg` under the eager driver (kernel Y's two
+  halves, its host read per iteration included);
+- with contact, also: the broad shell (broad_fn), the pair shell (pairs_fn,
+  its tables at their capacities as the fused solve keeps them), one [inv] trial (world
   positions and kernel H), the live pool (live_select, its projection at
   d=15 and its CSRs), and one Newton-Schulz refresh of the dense
   preconditioner;
 - under torch.profiler, one time step (cloth) or one Newton iteration's
   stages (spinning box): wall time, device time and the device's busy
-  share, the top device rows.
+  share, the top device rows;
+- the fused solve itself (K12): three more time steps recorded through
+  the CUDA graph, each solve again under the eager driver from the same
+  inputs (bit for bit), ms per Newton of both on graph replays, and the
+  last such solve's eager kernel time under torch.profiler (the graph's
+  bound on it, and its busy share inferred from it).
 
 Prints the numbers and writes them, with the profiler table, to
 chiprun_out/profile_stages/ at the repository root.
@@ -38,6 +44,8 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from stark_tpu_torch.solver.program import EagerControl
+from stark_tpu_torch.tools import k12_checks
 from stark_tpu_torch.tools.scenes import spinning_box_cloth
 from stark_tpu_torch.tools.timing import card_line, events_ms, graph_ms
 
@@ -115,7 +123,7 @@ def stages(sim) -> dict:
         # tolerances 0: exactly n_cg iterations of the real loop, syncs included
         solve_pcg(lambda p: ev.hvp_bucket(p, H_cat, topo),
                   lambda r: assembly.apply_preconditioner(Dinv, r),
-                  b, 0.0, 0.0, n_cg, False, to_host=ev.to_host)
+                  b, 0.0, 0.0, n_cg, False, ctl=EagerControl(read=ev.to_host))
 
     return {
         "energy_grad_hess": events_ms(
@@ -149,15 +157,9 @@ def contact_stages(sim):
     mc, ic, _c = eng.broad_fn(Vs, Vr, th, slack_b, slack_p)
 
     def pairs():
-        tables, cnt = eng.pairs_fn(Vs, Vr, th, mc, slack_p)
-        names = list(tables)
-        n = ev.to_host_vec(torch.stack([cnt[k[len("contact_"):]] for k in names]))
+        tables, _cnt = eng.pairs_fn(Vs, Vr, th, mc, slack_p)
         data = dict(static)
-        for name, c in zip(names, n.tolist()):
-            k = min(int(c), tables[name]["conn"].shape[0])
-            if k > 0:
-                data[name] = {"conn": tables[name]["conn"][:k],
-                              "rows": {r: v[:k] for r, v in tables[name]["rows"].items()}}
+        data.update(tables)
         return data, ev.egh_csr(data)
 
     data, egh_csr = pairs()
@@ -189,7 +191,7 @@ def contact_stages(sim):
     def cg_loop():
         solve_pcg(lambda p: ev.hvp_bucket(p, H_cat, topo, pool),
                   lambda r: assembly.apply_preconditioner(Dinv, r),
-                  b, 0.0, 0.0, n_cg, False, to_host=ev.to_host)
+                  b, 0.0, 0.0, n_cg, False, ctl=EagerControl(read=ev.to_host))
 
     def inv_trial():
         Vs1, Vr1 = eng.world_from_u(0.5 * u, state, dt)
@@ -207,7 +209,7 @@ def contact_stages(sim):
         assembly.precondition_inverse(ev.diag_bucket(H_cat, topo, pool))
         solve_pcg(lambda p: ev.hvp_bucket(p, H_cat, topo, pool),
                   lambda r: assembly.apply_preconditioner(Dinv, r),
-                  b, 0.0, 0.0, 10, False, to_host=ev.to_host)
+                  b, 0.0, 0.0, 10, False, ctl=EagerControl(read=ev.to_host))
         inv_trial()
         for _ in range(3):
             ev.energy(u, data, glob)
@@ -218,7 +220,7 @@ def contact_stages(sim):
         "energy": events_ms(lambda: ev.energy(u, data, glob), iters=5, warmup=1),
         "broad_fn": events_ms(lambda: eng.broad_fn(Vs, Vr, th, slack_b, slack_p),
                               iters=5, warmup=1),
-        "pairs_fn_and_trim": events_ms(pairs, iters=5, warmup=1),
+        "pairs_fn": events_ms(pairs, iters=5, warmup=1),
         "inv_trial": events_ms(inv_trial, iters=5, warmup=1),
         "live_pool_select_project_csr": events_ms(live, iters=5, warmup=1),
         "pd_projection_static": events_ms(lambda: project.project_all(
@@ -318,6 +320,8 @@ def main(argv=None) -> int:
                 raise AssertionError("the profiled time step failed")
 
         result["profiled_step"] = profiled(step, args.scene)
+    save()
+    result["fused_graph_vs_eager"] = k12_checks.window(sim, 3)
     save()
     return 0
 

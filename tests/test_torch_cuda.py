@@ -23,6 +23,7 @@ from stark_tpu_torch.ops import segment_reduce as sr, segment_triangle as st
 from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
 from stark_tpu_torch.collision import broad_phase as bp
 from stark_tpu_torch.ops import egh
+from stark_tpu_torch.solver import project as tproj
 from stark_tpu_torch.tools import egh_cases as ec
 
 pytestmark = pytest.mark.cuda
@@ -101,6 +102,54 @@ def test_pd_project_matches_twin(dev, dtype, d, mirroring, masked):
     if d > 3 and dtype == torch.float64:
         w = torch.linalg.eigvalsh(out[ch])
         assert float(w.min()) > -1e-8 * float(scale.max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [17, 24, 33, 64])
+@pytest.mark.parametrize("sweeps", [8, 16])
+def test_pd_project_wide_matches_twin(dev, dtype, d, sweeps):
+    """Kernel C's one-warp layout (16 < d <= 64), reached through
+    project_family_to_pd as a family of more than 16 DOFs reaches it,
+    against the twin's Jacobi on the same sweeps. A matrix whose twin
+    result lies within 100 eps max|H_e| of the exact projection (eigh in
+    float64) has converged: there the kernel is within 2000 eps max|H_e|
+    of the twin, as at d <= 16. Where the sweeps leave matrices
+    unconverged (8 sweeps from d ~ 24 in float64, ~ 48 in float32),
+    rounding differences steer the two through different rotations, so
+    they are held to the projection instead: the kernel's largest
+    distance from it within twice the twin's."""
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(129, d, d))
+    H = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), dtype=dtype, device=dev)
+    H[::3] = H[::3] @ H[::3].transpose(1, 2)            # PD: passes through
+    mask = torch.as_tensor(rng.random(129) < 0.8, device=dev)
+    before = build.launches["pd_project[wide]"]
+    out, ch = tproj.project_family_to_pd(H, 1e-9, True, mask, jacobi_sweeps=sweeps)
+    ref, ch_ref = pd.pd_project_plain(H, 1e-9, True, mask, sweeps)
+    torch.cuda.synchronize()
+    assert build.launches["pd_project[wide]"] == before + 1
+    assert torch.equal(ch, ch_ref)
+    assert torch.equal(out[~ch], H[~ch])
+    H64 = H.double().cpu()
+    w, V = torch.linalg.eigh(H64)
+    exact = torch.einsum("eij,ej,ekj->eik", V, torch.where(w < 1e-9, -w, w), V)
+    eps = torch.finfo(dtype).eps
+    scale = H64.abs().amax(dim=(1, 2))
+    spread = (ref.double().cpu() - exact).abs().amax(dim=(1, 2))
+    dist = (out.double().cpu() - exact).abs().amax(dim=(1, 2))
+    err = (out - ref).double().cpu().abs().amax(dim=(1, 2))
+    c = ch.cpu()
+    conv = c & (spread <= 100.0 * eps * scale)
+    print(f"d={d} {dtype} sweeps={sweeps}: {int(conv.sum())} of {int(c.sum())} "
+          f"converged, |kernel - twin| / (eps max|H_e|) there "
+          f"{float((err / (eps * scale))[conv].max()) if conv.any() else 0.0:.4g}; "
+          f"largest distance from the projection / (eps max|H_e|), kernel "
+          f"{float((dist / (eps * scale))[c].max()):.4g}, twin "
+          f"{float((spread / (eps * scale))[c].max()):.4g}")
+    assert torch.all(err[conv] <= 2000.0 * eps * scale[conv])
+    un = c & ~conv
+    if un.any():
+        assert float((dist / scale)[un].max()) <= 2.0 * float((spread / scale)[un].max())
 
 
 def test_pd_project_refuses_exact_eigh_on_cuda(dev):
@@ -1091,3 +1140,111 @@ def test_egh_kernels_match_twin(dev, dtype, name, barrier):
         twin32 = egh.plain(fam.energy_fn, u32, conn32, rows32, glob32)
         for part, o, t, r, s in zip("egH", out, twin32, ref, spread):
             assert ec.f32_ratio(o.cpu(), t, r, part, s)[0] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# K12: kernel X (the graph's loop control), kernel Y (the PCG step) and the
+# fused solve as one CUDA graph against the eager driver
+# ---------------------------------------------------------------------------
+def test_graph_ctl_nested_while_if_while(dev):
+    """Kernel X: a WHILE holding an IF holding a WHILE whose body runs torch
+    ops, captured once and replayed for several n, against the eager
+    driver and the closed form."""
+    from stark_tpu_torch.tools import k12_checks
+
+    build.reset_launches()
+    res = k12_checks.nested_check(dev)
+    assert res["ok"], res["cases"]
+    assert build.launches["graph_ctl"] > 0
+
+
+def _box_on_card(dtype, n=8, steps=3):
+    from stark_tpu_torch.tools.scenes import spinning_box_cloth
+
+    sim, cloth, spin = spinning_box_cloth(n, dtype, "cuda")
+    sim.add_time_event(0.0, 10.0, spin)
+    for _ in range(steps):
+        assert sim.run_one_time_step()
+    return sim, cloth
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_pcg_step_matches_twin_on_the_box(dev, dtype):
+    """Kernel Y's two halves against their twin over three CG iterations of
+    the 8x8 spinning box's Newton system after three steps, within the sum
+    rule; the flags equal."""
+    from stark_tpu_torch.tools import k12_checks
+
+    sim, _cloth = _box_on_card(dtype)
+    A, Minv, b = k12_checks.newton_system(sim)
+    build.reset_launches()
+    res = k12_checks.pcg_step_check(A, Minv, b)
+    assert res["flags_equal"] and res["max_err_ratio"] <= 1.0, res
+    assert build.launches["pcg_step[1]"] == 3 and build.launches["pcg_step[2]"] == 3
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_graph_matches_eager_driver_bit_for_bit(dev, dtype):
+    """Three solves of the 8x8 box on the card through the captured graph
+    (one host read each), then each again under the eager driver from the
+    recorded inputs: u, the stats and the counts, bit for bit."""
+    from stark_tpu_torch.tools import k12_checks
+
+    sim, _cloth = _box_on_card(dtype, steps=2)
+    nm = sim.stark.newton
+    rec = k12_checks.record(nm)
+    lg = sim.get_logger()
+    for _ in range(3):
+        retraces = lg.get_int("fused_retraces")
+        assert sim.run_one_time_step()
+        assert nm.stats.host_syncs == 1 + lg.get_int("fused_retraces") - retraces
+    k12_checks.stop_recording(nm, rec)
+    assert nm._fused.captures >= 1
+    res = k12_checks.graph_vs_eager(nm, rec)
+    assert res["solves"] >= 3 and all(res["bitwise_equal"]), res
+    assert sim.stark.newton.live_contact_pairs() > 0
+
+
+def test_fused_graph_recaptures_on_overflow(dev):
+    """A forced capacity overflow on the card re-solves through a new
+    capture (two host reads) and gives, bit for bit, the step of a run that
+    starts it with the bumped capacities."""
+    small = {"w_pt": 16, "m_pt": 16, "w_ee": 16, "m_ee": 16, "pt_dd": 4,
+             "pt_dr": 4, "ee_dd": 4, "ee_dr": 4}
+    a, ca = _box_on_card("float64", n=6, steps=2)
+    b, cb = _box_on_card("float64", n=6, steps=2)
+    nm_a = a.stark.newton
+    eng_a = a.interactions.contact.engine()
+    eng_a.set_caps(small)
+    nm_a._pool_cap = 8
+    captures = nm_a._fused.captures
+    assert a.run_one_time_step()
+    retraces = a.get_logger().get_int("fused_retraces")
+    assert retraces >= 1 and nm_a.stats.host_syncs == 1 + retraces
+    # the smaller capacities are a new key (one capture), each re-solve another
+    assert nm_a._fused.captures == captures + 1 + retraces
+    b.interactions.contact.engine().set_caps(dict(eng_a._caps))
+    b.stark.newton._pool_cap = nm_a._pool_cap
+    assert b.run_one_time_step()
+    assert b.stark.newton.stats.host_syncs == 1
+    assert np.array_equal(ca.point_set.get_positions(), cb.point_set.get_positions())
+
+
+def test_soft_boxes_exact_eigh_on_card_track_the_cpu_port(dev, monkeypatch):
+    """ROADMAP Queue 3 item 5: jacobi_sweeps = 0 runs exact eigh on the card,
+    as JAX does. torch.linalg.eigh cannot be captured, so the fused solve
+    raises at its capture and names the cause; the staged solver
+    (STARK_TPU_TORCH_NO_FUSED=1) runs the soft boxes for two steps with the
+    CPU port's staged codes and Newton counts."""
+    from stark_tpu_torch.tools.scenes import deformable_and_rigid_collisions
+
+    sim, _h = deformable_and_rigid_collisions("float64", "cuda", 2, 1)
+    sim.stark.settings.device.jacobi_sweeps = 0
+    with pytest.raises(RuntimeError, match="cannot be captured"):
+        sim.run_one_time_step()
+    monkeypatch.setenv("STARK_TPU_TORCH_NO_FUSED", "1")
+    x_gpu, codes_gpu, newton_gpu, _f = _soft_boxes("cuda", 0, steps=2)
+    x_cpu, codes_cpu, newton_cpu, _f = _soft_boxes("cpu", 0, steps=2)
+    print(f"sweeps 0, staged: Newton per step card {newton_gpu}, CPU {newton_cpu}")
+    assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
+    assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6

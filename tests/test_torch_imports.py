@@ -1,8 +1,8 @@
 """The port stands alone: no file of `stark_tpu_torch/` and not
 `chip_smoke.py` imports jax, jaxlib or the JAX package `stark_tpu`, and
 every module of the contact, staged-solver, element-derivative,
-rods-and-volumes and attachments-and-I/O slices imports without a card or
-nvcc."""
+rods-and-volumes, attachments-and-I/O and fused-program (K12) slices
+imports without a card or nvcc."""
 import ast
 import importlib
 import os
@@ -121,6 +121,17 @@ ATTACHMENT_IO_SLICE = [
 ]
 
 
+# the fused solve as one device program (K12): the control and binder,
+# kernel X's and Y's wrappers, the program and the card checks
+K12_SLICE = [
+    "stark_tpu_torch.solver.program",
+    "stark_tpu_torch.solver.fused",
+    "stark_tpu_torch.ops.graph_ctl",
+    "stark_tpu_torch.ops.pcg_step",
+    "stark_tpu_torch.tools.k12_checks",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
@@ -131,10 +142,11 @@ def test_port_has_files():
     assert set(EGH_SLICE) <= names
     assert set(VOLUME_SLICE) <= names
     assert set(ATTACHMENT_IO_SLICE) <= names
+    assert set(K12_SLICE) <= names
 
 
 @pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE + VOLUME_SLICE
-                         + ATTACHMENT_IO_SLICE)
+                         + ATTACHMENT_IO_SLICE + K12_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""

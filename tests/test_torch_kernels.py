@@ -276,3 +276,22 @@ def test_wrappers_never_fall_back_off_the_cpu():
     csr = sr.build_csr(torch.tensor([0, 1, 1, 2]), 3)
     with pytest.raises(ValueError, match="CUDA"):
         sr.segment_reduce(torch.zeros((4, 9), device="meta"), csr, "test")
+
+
+@pytest.mark.parametrize("d", [17, 24, 64])
+def test_project_sends_wide_blocks_to_kernel_c(d):
+    """A block of more than 16 DOFs with Jacobi sweeps goes to kernel C's
+    one-warp layout (pd_project_wide), never to the twin off the CPU: on a
+    meta tensor the kernel path's checks raise. On the CPU the wide wrapper
+    is the twin; past 64 it refuses."""
+    H = torch.zeros((4, d, d), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        tproj.project_family_to_pd(H, 1e-9, False, jacobi_sweeps=8)
+    with pytest.raises(ValueError, match="exceeds"):
+        pd.pd_project_wide(torch.zeros((4, 65, 65), device="meta"), 1e-9, False, None, 8)
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(5, d, d))
+    Hc = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)))
+    out, ch = pd.pd_project_wide(Hc, 1e-9, True, None, 8)
+    ref, ch_ref = pd.pd_project_plain(Hc, 1e-9, True, None, 8)
+    assert torch.equal(out, ref) and torch.equal(ch, ch_ref)
