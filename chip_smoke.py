@@ -151,7 +151,17 @@ Phases (every failure propagates; nothing is caught):
      else left out of both), and at phases 7 and 23 the last timed solve's
      eager kernel time under torch.profiler beside both drivers' ms on it
      (the graph's bound; the graph's busy share is inferred from it, as
-     the profiler misses kernels inside conditional bodies).
+     the profiler misses kernels inside conditional bodies);
+ 25. at phase 7's final state, `python3 -m stark_tpu_torch.tools.profile_linsolve`'s
+     profile (JAX's gather-table and dense-direct helpers, kernels AA-AC,
+     beside the solver's hvp, Newton-Schulz refresh and PCG), with the
+     launches of AA-AC counted over it; AA's tables bit for bit and AB, AC
+     within the sum rule against their twins there, each timed; kernel Z
+     (JAX's exact-eigh branch: jacobi_sweeps = 0 and every d <= 3, here the
+     box's fix at d = 3, which phase 7 ran through Z; and a seeded d = 96
+     stack, its wide layout) against its twin; and phase 19's soft boxes at
+     jacobi_sweeps = 0 for a short window through the graph: finite, the
+     last solve successful, one host read per solve, every projection on Z.
 
 A kernel's launch count counts its wrapper's calls: inside the captured
 graph a site counts once per capture (its replays launch it again on the
@@ -3328,6 +3338,204 @@ def k12_kernel_checks(sim) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: K15's helpers (kernels AA-AC) behind the linear-solve profiler,
+# and kernel Z (exact eigh on the card, blocks over 64 DOFs)
+# ---------------------------------------------------------------------------
+SWEEPS0_SECONDS = 0.05
+Z_SEEDED_D = 96
+LINSOLVE_KERNELS = ("gather_tables[scatter_table]", "gather_tables[scatter_table_rows]",
+                    "gather_tables[direct_tables]", "hvp_table", "dense_runs[perm]",
+                    "dense_runs[direct]")
+PHASE25_KERNELS = [
+    # name, source, the TPU-shaped JAX function it replaces
+    ("pd_project_z", "stark_tpu_torch/csrc/pd_project.cu", "stark_tpu/solver/project.py:116"),
+    ("gather_tables[scatter_table]", "stark_tpu_torch/csrc/gather_tables.cu",
+     "stark_tpu/solver/assembly.py:214"),
+    ("gather_tables[scatter_table_rows]", "stark_tpu_torch/csrc/gather_tables.cu",
+     "stark_tpu/solver/assembly.py:524"),
+    ("gather_tables[direct_tables]", "stark_tpu_torch/csrc/gather_tables.cu",
+     "stark_tpu/solver/assembly.py:604"),
+    ("hvp_table", "stark_tpu_torch/csrc/hvp_table.cu", "stark_tpu/solver/assembly.py:239"),
+    ("dense_runs[perm]", "stark_tpu_torch/csrc/dense_runs.cu",
+     "stark_tpu/solver/assembly.py:642"),
+    ("dense_runs[direct]", "stark_tpu_torch/csrc/dense_runs.cu",
+     "stark_tpu/solver/assembly.py:789"),
+]
+
+
+def hold_exact(name, got, want):
+    """Integer tables bit for bit, overflow signals included."""
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not torch.equal(a.cpu().to(torch.int64), b.cpu().to(torch.int64))]
+    log(f"  {name:<36} {len(got)} outputs bit for bit: {'ok' if not bad else f'FAIL {bad}'}")
+    assert not bad, f"{name} disagrees with its twin in outputs {bad}"
+
+
+def linsolve_checks(sim) -> dict:
+    """Kernels AA-AC against their twins at the simulation's state (phase
+    7's, in JAX's single bucket): the tables bit for bit, the hvp and both
+    dense layouts within 64 eps sum|terms|. Each kernel timed in a CUDA
+    graph, its twin from host launches (kernel E's twin, torch.nonzero,
+    reads the host), with its one-call PyTorch yardstick and its bound on
+    this state's data."""
+    from stark_tpu_torch.ops import dense_runs as dr, hvp_table as htb, tables as tb
+    from stark_tpu_torch.tools import profile_linsolve as pl
+
+    st = pl.linear_system(sim)
+    n, conn, H = st.ev.n_blocks, st.conn, st.H
+    dtype, sz = H.dtype, H.element_size()
+    E, b = conn.shape
+    rows = conn.reshape(-1).to(torch.int32)
+    R, N1 = rows.numel(), n + 1
+    K, HC, K2, SC = pl.K, pl.HOT_CAP, pl.K2, pl.SLOT_CAP
+    ids = torch.arange(n, dtype=torch.int32, device=DEVICE)
+
+    def lib_tables(keys):
+        srt = torch.sort(keys, stable=True)
+        return torch.searchsorted(srt.values, ids)
+
+    out = {}
+    # ---- AA
+    got = tb.gather_table(rows, n, K)
+    hold_exact("gather_tables[scatter_table]", got, tb.gather_table_plain(rows, n, K))
+    bnd = bound_ms(4 * R + 4 * n * K + 4, 0, dtype)
+    out["gather_tables[scatter_table]"] = dict(
+        max_abs_err=0.0, ms=graph_ms(lambda: tb.gather_table(rows, n, K)),
+        plain_ms=events_ms(lambda: tb.gather_table_plain(rows, n, K), iters=5),
+        library_ms=graph_ms(lambda: lib_tables(rows)), bound_ms=bnd[0], bound_by=bnd[1],
+        shape=f"rows ({R},), table ({n}, {K}), max_len {int(got[1])}")
+    got = tb.gather_table_rows(rows, n, K, HC, K2)
+    hold_exact("gather_tables[scatter_table_rows]", got,
+               tb.gather_table_rows_plain(rows, n, K, HC, K2))
+    bnd = bound_ms(4 * R + 4 * n * K + 4 * HC * (K2 + 1) + 8, 0, dtype)
+    out["gather_tables[scatter_table_rows]"] = dict(
+        max_abs_err=0.0, ms=graph_ms(lambda: tb.gather_table_rows(rows, n, K, HC, K2)),
+        plain_ms=events_ms(lambda: tb.gather_table_rows_plain(rows, n, K, HC, K2), iters=5),
+        library_ms=graph_ms(lambda: lib_tables(rows)), bound_ms=bnd[0], bound_by=bnd[1],
+        shape=f"rows ({R},), ({n}, {K}) + ({HC}, {K2}), hot_n {int(got[3])}, "
+              f"max_deg {int(got[4])}")
+    dtab = tb.direct_tables(conn, n, SC)
+    hold_exact("gather_tables[direct_tables]", dtab, tb.direct_tables_plain(conn, n, SC))
+    R2 = dtab.order.numel()
+    pid = tb._pair_keys_plain(conn, n)
+    bnd = bound_ms(4 * E * b + 5 * R2 + 8 * SC + 4, 0, dtype)
+    out["gather_tables[direct_tables]"] = dict(
+        max_abs_err=0.0, ms=graph_ms(lambda: tb.direct_tables(conn, n, SC)),
+        plain_ms=events_ms(lambda: tb.direct_tables_plain(conn, n, SC), iters=5),
+        library_ms=graph_ms(lambda: torch.sort(pid, stable=True)), bound_ms=bnd[0],
+        bound_by=bnd[1], shape=f"conn ({E}, {b}), {R2} pairs, {int(dtab.n_slots)} slots "
+                               f"of {SC}")
+    # ---- AB against its twin; the yardstick: the same matrix as BSR
+    p = (-st.grad).contiguous()
+    entry = got[0]
+    groups = [(conn, H)]
+    q = htb.hvp_table(p, groups, entry)
+    ref = htb.hvp_table_plain(p, groups, entry)
+    absref = htb.hvp_table_plain(p.abs(), [(conn, H.abs())], entry)
+    torch.cuda.synchronize()
+    err = check("hvp_table", dtype, (q - ref).abs(), sum_tol(absref, dtype))
+    kept = int((entry < R).sum())
+    nb = kept * 9 * b * sz + 4 * (n * K + kept * b) + 2 * p.numel() * sz
+    bnd = bound_ms(nb, 2.0 * kept * 9 * b, dtype)
+    bsr = bsr_of(groups, n)
+    pv = p.reshape(-1, 1)
+    out["hvp_table"] = dict(
+        max_abs_err=err, ms=graph_ms(lambda: htb.hvp_table(p, groups, entry)),
+        plain_ms=graph_ms(lambda: htb.hvp_table_plain(p, groups, entry)),
+        library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)), bound_ms=bnd[0],
+        bound_by=bnd[1], shape=f"H ({E}, {3 * b}, {3 * b}), {kept} table entries, p ({n}, 3)")
+    # ---- AC, both layouts; the yardstick: index_add_ of the pair values
+    vals = dr.pair_values(H)
+    pid_l = pid.to(torch.int64)
+
+    def lib_add():
+        return torch.zeros((N1 * N1, 9), dtype=dtype, device=DEVICE).index_add_(0, pid_l, vals)
+
+    for layout, name, m in ((dr.PERM, "dense_runs[perm]", 3 * N1),
+                            (dr.DIRECT, "dense_runs[direct]", 3 * n)):
+        got = dr.dense_runs(H, dtab, n, layout)
+        ref = dr.dense_runs_plain(H, dtab, n, layout)
+        if layout == dr.PERM:
+            tol = sum_tol(dr.dense_runs_plain(H.abs().double(), dtab, n, layout), dtype)
+        else:
+            # the twin differences JAX's f64 cumsum: its error scales with
+            # the prefix's sum |terms|, the kernel's with the run's
+            run_abs, prefix_abs = dr.direct_sum_scales(H, dtab, n)
+            tol = sum_tol(run_abs, dtype) + sum_tol(prefix_abs, torch.float64)
+        torch.cuda.synchronize()
+        err = check(name, dtype, (got.double() - ref.double()).abs(), tol)
+        bnd = bound_ms(R2 * (9 * sz + 4) + 8 * SC + m * m * sz, R2 * 9, dtype)
+        out[name] = dict(
+            max_abs_err=err, ms=graph_ms(lambda: dr.dense_runs(H, dtab, n, layout)),
+            plain_ms=events_ms(lambda: dr.dense_runs_plain(H, dtab, n, layout), iters=5),
+            library_ms=graph_ms(lib_add), bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"{R2} block pairs, {int(dtab.n_slots)} runs, ({m}, {m})")
+    return out
+
+
+def z_checks(sim) -> dict:
+    """Kernel Z against its twin at phase 7's d = 3 rows (the box's fix,
+    rb_constraint_global_directions, JAX's exact-eigh branch) and on a
+    seeded d = 96 stack (the wide layout), converged, within 2000 eps
+    max|H_e| per matrix and every matrix converged; timed with eigh as its
+    yardstick (from host launches: eigh reads the host)."""
+    from stark_tpu_torch.ops import pd_project as pd
+    from stark_tpu_torch.tools import profile_linsolve as pl
+
+    st = pl.linear_system(sim)
+    H3 = st.hess["rb_constraint_global_directions"].contiguous()
+    rng = np.random.default_rng(96)
+    A = rng.normal(size=(8, Z_SEEDED_D, Z_SEEDED_D))
+    H96 = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), dtype=H3.dtype, device=DEVICE)
+    out = {}
+    for label, H in (("d3", H3), ("d96", H96)):
+        unconv = torch.zeros((), dtype=torch.int32, device=DEVICE)
+        got, ch = pd.pd_project_z(H, 1e-10, False, None, 0, unconv)
+        ref, ch_ref = pd.pd_project_z_plain(H, 1e-10, False, None, 0)
+        torch.cuda.synchronize()
+        assert int(unconv) == 0 and torch.equal(ch, ch_ref), f"kernel Z at {label}"
+        tol = 2000.0 * torch.finfo(H.dtype).eps * H.abs().amax(dim=(1, 2), keepdim=True)
+        err = check(f"pd_project_z[{label}]", H.dtype, (got - ref).abs(),
+                    tol + torch.finfo(H.dtype).tiny)
+        E, d, _ = H.shape
+        n_rounds = d if d % 2 else d - 1
+        sw = pd._jacobi_eigh_converged(H)[3]
+        flops = float(sw.sum()) * n_rounds * 9 * d * d + E * 3 * d ** 3
+        bnd = bound_ms(nbytes(H, got, ch), flops, H.dtype)
+        out[label] = dict(
+            max_abs_err=err, ms=graph_ms(lambda: pd.pd_project_z(H, 1e-10, False, None, 0)),
+            plain_ms=events_ms(lambda: pd.pd_project_z_plain(H, 1e-10, False, None, 0),
+                               iters=3),
+            library_ms=events_ms(lambda: torch.linalg.eigh(H), iters=5),
+            bound_ms=bnd[0], bound_by=bnd[1],
+            shape=f"H {tuple(H.shape)}, converged in {int(sw.min())}-{int(sw.max())} sweeps")
+    log("  Z: " + json.dumps(out))
+    return out
+
+
+def sweeps0_run() -> dict:
+    """Phase 19's soft boxes at jacobi_sweeps = 0 (JAX's exact eigh: kernel
+    Z converged for every family) for SWEEPS0_SECONDS through the fused
+    solve's graph: finite, every step successful, one host read per solve."""
+    from stark_tpu_torch.tools.scenes import deformable_and_rigid_collisions
+
+    sim, (h1, h2, _floor) = deformable_and_rigid_collisions("float32", DEVICE)
+    sim.stark.settings.device.jacobi_sweeps = 0
+    launches, fields = run_scene(sim, SWEEPS0_SECONDS, "phase 25 (soft boxes, sweeps 0)")
+    x = np.concatenate([h1.point_set.get_positions(), h2.point_set.get_positions()])
+    assert np.all(np.isfinite(x)), "phase 25: non-finite positions at sweeps 0"
+    codes = fields["solver_codes"]
+    assert codes and codes[-1] == 1, f"phase 25: solver codes {codes} at sweeps 0"
+    syncs = int(sim.get_logger().get_stats("host_syncs").total)
+    assert syncs == len(codes) + fields["fused_retraces"], \
+        f"phase 25: {syncs} host reads for {len(codes)} solves at sweeps 0"
+    assert launches.get("pd_project_z", 0) > 0 and launches.get("pd_project", 0) == 0, \
+        f"phase 25: the sweeps-0 projections did not all take kernel Z: {launches}"
+    assert sim.stark.newton._fused.captures >= 1
+    return fields
+
+
 def assert_launched(launches, names, where: str):
     """Every kernel named was launched at least once in the run."""
     for k in names:
@@ -3461,8 +3669,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     assert np.all(np.isfinite(x)), "non-finite positions"
     assert fields["live_pairs_last"] > 0, "no live contact pairs"
     assert not intersects_now(sbc), "the final state intersects"
-    assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS + K12_KERNELS,
-                    "the contact path")
+    # the box's fix (rb_constraint_global_directions, d = 3) takes kernel Z
+    assert_launched(launches_sbc, CONTACT_KERNELS + SOLVER_KERNELS + K12_KERNELS
+                    + ("pd_project_z",), "the contact path")
     assert_egh_path(sbc, launches_sbc, BOX_FAMILIES, "the contact path")
 
     # ---- 8 ----
@@ -3607,6 +3816,25 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     fs7 = sbc.stark.newton._fused
     log(f"  phase 7: captures={fs7.captures} capture_s={fs7.capture_seconds:.2f}")
 
+    # ---- 25: K15's helpers behind the linear-solve profiler, and kernel Z
+    log("phase 25: tools/profile_linsolve at phase 7's state (kernels AA-AC), kernel Z "
+        f"at its d = 3 rows and a seeded d = {Z_SEEDED_D} stack, the soft boxes at "
+        f"jacobi_sweeps = 0 for {SWEEPS0_SECONDS} s")
+    from stark_tpu_torch.tools import profile_linsolve
+
+    t25 = time.perf_counter()
+    build.reset_launches()
+    prof25 = profile_linsolve.profile(sbc)
+    launches25 = dict(build.launches)
+    log("phase 25 profile_linsolve: " + json.dumps(prof25))
+    log(f"  launches={launches25}")
+    assert_launched(launches25, LINSOLVE_KERNELS, "the linear-solve profiler")
+    assert prof25["dense_inverse_ok"] and prof25["direct_solve_ok"], "phase 25: a factorization failed"
+    r25 = linsolve_checks(sbc)
+    r25["pd_project_z"] = z_checks(sbc)
+    fields25 = sweeps0_run()
+    log(f"  phase 25: {time.perf_counter() - t25:.1f}s")
+
     t7 = egh_timings(sbc, BOX_FAMILIES, 7, launches_sbc)
     log("phase 17 (times): the 64x64 cloth at phase 4's end, float32")
     t4 = egh_timings(sim64, CLOTH_FAMILIES, 4, launches64)
@@ -3643,6 +3871,14 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
         kernels.append({"name": name, "route": "cuda", "source": "stark_tpu_torch/csrc/" + src,
                         "replaces": replaces, "launches": launches_sbc.get(name, 0),
                         **r24[name]})
+    for name, source, replaces in PHASE25_KERNELS:
+        if name == "pd_project_z":
+            r = dict(r25[name]["d3"], seeded_d96=r25[name]["d96"])
+            launches = launches_sbc.get(name, 0)
+        else:
+            r, launches = r25[name], launches25.get(name, 0)
+        kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                        "launches": launches, **r})
     for name in BOX_FAMILIES + ("EnergyPrescribedPositions",):
         cloth = name == "EnergyPrescribedPositions"
         kernels.append(egh_record(name, (t4 if cloth else t7)["families"][name],
@@ -3703,6 +3939,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                "attachments_times": r23["times"], "seeded_times": t_off,
                "build_s_by_source": build.build_info.get("seconds_by_source"),
                "spinning_box_golden16_f64_devs": devs, "kernels": kernels,
+               "linsolve_phase25": {"profile": prof25, "launches": launches25,
+                                    "kernels": r25, "soft_boxes_sweeps0": fields25},
                "k12_phase24": r24, "k12_windows": {"phase10": r10.get("k12"),
                                                    "phase12": r12.get("k12"),
                                                    "phase23": r23.get("k12")},

@@ -1,14 +1,48 @@
-// Kernel C: per-matrix PD projection by parallel-order cyclic Jacobi.
+// Kernels C and Z: per-matrix PD projection by parallel-order cyclic Jacobi.
 //
-// Replaces stark_tpu/solver/project.py `_jacobi_eigh` (:53-113) together with
-// `project_family_to_pd` (:122-141): eigen-decompose each symmetric d x d
-// element Hessian, clamp (or mirror) eigenvalues below eps, and rebuild
-// V diag(w) V^T for the elements that changed.
+// Kernel C replaces stark_tpu/solver/project.py `_jacobi_eigh` (:53-113)
+// together with `project_family_to_pd` (:122-141): eigen-decompose each
+// symmetric d x d element Hessian with a fixed number of sweeps, clamp (or
+// mirror) eigenvalues below eps, and rebuild V diag(w) V^T for the elements
+// that changed.
 //
-// One warp owns one matrix. A, its eigenvector accumulator V and two scratch
-// copies live in dynamic shared memory: four warps share a block for d <= 16
-// (at most 4 x 256 values per warp); for 16 < d <= 64 (user families of more
-// than five nodes) a block holds one warp, whose lanes take rows i, i + 32.
+// Kernel Z is the same rotations in two more modes (ops/pd_project.py
+// `pd_project_z`). It replaces the exact-eigh branch of `batched_eigh`
+// (:116-119: jacobi_sweeps = 0, and every d <= 3), which the card cannot
+// run inside the fused solve's CUDA graph (cuSOLVER reads the device), and
+// `_jacobi_eigh` at d > 64:
+//   * converged mode: before every sweep each matrix copies its upper
+//     triangle into the lower one and tests the entries above the
+//     diagonal, |a_ik| <= tol max_j |a_jj| (tol the dtype's machine
+//     epsilon: eigh's own normwise accuracy); once all pass it runs one
+//     more sweep, which squares what the test left (Jacobi converges
+//     quadratically), as kernel C's sweeps past convergence do, and stops;
+//     at most `sweeps` (30) sweeps in all. The copy: JAX's row-then-column
+//     form leaves rounding residue of eps |A| in the lower triangle, which
+//     rotations within a near-degenerate cluster carry back into the upper
+//     one sweep after sweep (without it the soft boxes' f64 blocks took up
+//     to 30 sweeps, with it at most 13). The relative test |a_ik| <= tol
+//     sqrt|a_ii a_kk| cannot be met where an eigenvalue is (numerically)
+//     zero more than once, as for a tet's rigid modes: entries of 1e-17
+//     between them stay against a bound of 1e-33. A matrix that never
+//     passed the test adds one to `*unconverged` (an integer atomic: the
+//     count is exact), which the solve reads with its one host read and
+//     raises on. Each matrix loops on its own flag: the warp (or, in the
+//     wide layout, the block) agrees on it with a vote, so no host read and
+//     no grid-wide step is needed inside a graph.
+//   * wide layout, d > 64: one block of 256 threads per matrix (a block
+//     walks over matrices when there are more than its grid), A, V and the
+//     two scratch copies in a global scratch buffer (4 d^2 values per
+//     block: at d = 64 the shared-memory layout already takes 133 KB in
+//     f64), cr, sr, the clamped eigenvalues and the round's partners in
+//     shared memory; every row and column pass of a round is split across
+//     the block's warps, with a block barrier between passes.
+//
+// The shared-memory layouts: one warp owns one matrix. A, its eigenvector
+// accumulator V and two scratch copies live in dynamic shared memory: four
+// warps share a block for d <= 16 (at most 4 x 256 values per warp); for
+// 16 < d <= 64 (user families of more than five nodes) a block holds one
+// warp, whose lanes take rows i, i + 32.
 // Each round of the round-robin schedule (the host passes `sched[r][i]`, the
 // partner of row i in round r, i itself for a bye; built by
 // `_round_robin_rounds`, project.py:31-50) applies floor(d/2) disjoint
@@ -18,7 +52,7 @@
 //   A' = c_col * B + s_col * B[:, perm]
 //   V' = c_col * V + s_col * V[:, perm]
 // Both rows of a pair compute the same (c, s) from the same A, so a round
-// needs no extra exchange between lanes. After `sweeps` sweeps the diagonal
+// needs no extra exchange between lanes. After the sweeps the diagonal
 // holds the eigenvalues; below = w < eps, the element is selected when any
 // eigenvalue is below and `elem_mask` (optional) allows it, and only then is
 // V diag(w') V^T written; otherwise the input is copied through.
@@ -27,12 +61,21 @@
 // (plus d/2 atan2/cos/sin), about 52 kflop per 9x9 matrix at 8 sweeps,
 // against 2 x 81 values of traffic. Design: shared memory keeps every
 // sweep's traffic on chip; a warp per matrix keeps the rounds in lockstep
-// with only __syncwarp between the row and column passes.
+// with only __syncwarp between the row and column passes. The converged
+// test costs d^2 compares per sweep, under a tenth of a sweep's work. The
+// wide layout's passes go through L1/L2 (4 d^2 values, 295 KB per matrix at
+// d = 96 in f64); it serves user families of more than 21 nodes, none of
+// which a model of the repository has.
+#include <cfloat>
+
 #include "stk_common.cuh"
 
 #define STK_PD_DMAX 64
 #define STK_PD_NARROW 16
 #define STK_PD_WARPS 4
+#define STK_PD_WIDE_THREADS 256
+// blocks of the wide layout at most (each keeps 4 d^2 values of scratch)
+#define STK_PD_WIDE_GRID 264
 
 __device__ __forceinline__ float stk_atan2(float y, float x) { return atan2f(y, x); }
 __device__ __forceinline__ double stk_atan2(double y, double x) { return atan2(y, x); }
@@ -40,6 +83,28 @@ __device__ __forceinline__ float stk_cos(float x) { return cosf(x); }
 __device__ __forceinline__ double stk_cos(double x) { return cos(x); }
 __device__ __forceinline__ float stk_sin(float x) { return sinf(x); }
 __device__ __forceinline__ double stk_sin(double x) { return sin(x); }
+
+__device__ __forceinline__ float stk_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double stk_abs(double x) { return fabs(x); }
+
+// Kernel Z's stop bound of a (d, d) matrix, row-major with row stride `ld`:
+// tol * max_j |a_jj| (a NaN propagates, and then no entry passes, as in the
+// twin). Each thread reads the whole diagonal (max is exact, so every
+// thread gets the same bound).
+template <typename T>
+__device__ __forceinline__ T pd_stop_bound(const T* A, int d, long long ld, T tol) {
+  T m = T(0);
+  for (int j = 0; j < d; ++j) {
+    const T a = stk_abs(A[j * ld + j]);
+    m = (a > m || a != a) ? a : m;
+  }
+  return tol * m;
+}
+
+template <typename T>
+__host__ __device__ inline T pd_tol() {
+  return sizeof(T) == 4 ? (T)FLT_EPSILON : (T)DBL_EPSILON;
+}
 
 // One warp's shared memory: A, B, V, W (d x d each), cr, sr, w (d each), then
 // the d partners; rounded up to 16 bytes so the next warp's values align.
@@ -52,10 +117,12 @@ __host__ __device__ inline size_t pd_warp_bytes(int d) {
 template <typename T>
 __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
                                   const int* __restrict__ sched, int n_rounds,
-                                  int sweeps, T eps, int mirroring,
+                                  int sweeps, int converge, T eps,
+                                  int mirroring,
                                   const uint8_t* __restrict__ elem_mask,
                                   T* __restrict__ H_out,
-                                  uint8_t* __restrict__ changed) {
+                                  uint8_t* __restrict__ changed,
+                                  int* __restrict__ unconverged) {
   extern __shared__ __align__(16) unsigned char stk_pd_smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -77,7 +144,26 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
   }
   __syncwarp();
 
+  const T tol = pd_tol<T>();
+  bool passed = false;
   for (int sw = 0; sw < sweeps; ++sw) {
+    if (converge) {
+      if (passed) break;  // the sweep after the test passed is done
+      for (int t = lane; t < dd; t += 32) {  // the lower triangle from the upper
+        const int i = t / d;
+        const int k = t - i * d;
+        if (i > k) A[t] = A[k * d + i];
+      }
+      __syncwarp();
+      bool bad = false;
+      const T bound = pd_stop_bound(A, d, d, tol);
+      for (int t = lane; t < dd; t += 32) {
+        const int i = t / d;
+        const int k = t - i * d;
+        if (i < k && !(stk_abs(A[t]) <= bound)) bad = true;
+      }
+      passed = !__any_sync(0xffffffffu, bad);
+    }
     for (int r = 0; r < n_rounds; ++r) {
       for (int i = lane; i < d; i += 32) {
         const int j = sched[r * d + i];
@@ -118,6 +204,17 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
       W = tmp;
     }
   }
+  if (converge && !passed) {
+    bool bad = false;
+    const T bound = pd_stop_bound(A, d, d, tol);
+    for (int t = lane; t < dd; t += 32) {
+      const int i = t / d;
+      const int k = t - i * d;
+      if (i < k && !(stk_abs(A[t]) <= bound)) bad = true;
+    }
+    if (__any_sync(0xffffffffu, bad) && lane == 0 && unconverged != nullptr)
+      atomicAdd(unconverged, 1);
+  }
 
   bool below = false;
   for (int i = lane; i < d; i += 32) {
@@ -144,13 +241,159 @@ __global__ void pd_project_kernel(const T* __restrict__ H, int n_mat, int d,
   if (lane == 0) changed[m] = sel ? 1 : 0;
 }
 
+// Kernel Z's wide layout (d > 64): one block per matrix, the matrices in a
+// global scratch buffer of 4 d^2 values per block (A, B, V, W).
+template <typename T>
+__global__ void pd_project_global_kernel(const T* __restrict__ H, int n_mat, int d,
+                                         const int* __restrict__ sched, int n_rounds,
+                                         int sweeps, int converge, T eps,
+                                         int mirroring,
+                                         const uint8_t* __restrict__ elem_mask,
+                                         T* __restrict__ H_out,
+                                         uint8_t* __restrict__ changed,
+                                         T* __restrict__ scratch,
+                                         int* __restrict__ unconverged) {
+  extern __shared__ __align__(16) unsigned char stk_pd_gsmem[];
+  T* cr = reinterpret_cast<T*>(stk_pd_gsmem);
+  T* sr = cr + d;
+  T* wn = sr + d;
+  int* partner = reinterpret_cast<int*>(wn + d);
+  const int tid = threadIdx.x;
+  const int nt = blockDim.x;
+  const long long dd = (long long)d * d;
+  const T tol = pd_tol<T>();
+  T* base = scratch + (long long)blockIdx.x * 4 * dd;
+  for (long long m = blockIdx.x; m < n_mat; m += gridDim.x) {
+    T* A = base;
+    T* B = A + dd;
+    T* V = B + dd;
+    T* W = V + dd;
+    const T* Hm = H + m * dd;
+    for (long long t = tid; t < dd; t += nt) {
+      A[t] = Hm[t];
+      V[t] = (t / d == t % d) ? T(1) : T(0);
+    }
+    __syncthreads();
+    bool passed = false;
+    for (int sw = 0; sw < sweeps; ++sw) {
+      if (converge) {
+        if (passed) break;  // the sweep after the test passed is done
+        for (long long t = tid; t < dd; t += nt) {  // the lower triangle from the upper
+          const int i = (int)(t / d);
+          const int k = (int)(t - (long long)i * d);
+          if (i > k) A[t] = A[(long long)k * d + i];
+        }
+        __syncthreads();
+        int bad = 0;
+        const T bound = pd_stop_bound(A, d, d, tol);
+        for (long long t = tid; t < dd; t += nt) {
+          const int i = (int)(t / d);
+          const int k = (int)(t - (long long)i * d);
+          if (i < k && !(stk_abs(A[t]) <= bound)) bad = 1;
+        }
+        passed = !__syncthreads_or(bad);
+      }
+      for (int r = 0; r < n_rounds; ++r) {
+        for (int i = tid; i < d; i += nt) {
+          const int j = sched[r * d + i];
+          if (j == i) {
+            cr[i] = T(1);
+            sr[i] = T(0);
+          } else {
+            const int p = i < j ? i : j;
+            const int q = i < j ? j : i;
+            const T app = A[(long long)p * d + p];
+            const T aqq = A[(long long)q * d + q];
+            const T apq = A[(long long)p * d + q];
+            const T theta = T(0.5) * stk_atan2(T(2) * apq, aqq - app);
+            const T c = stk_cos(theta);
+            const T sn = stk_sin(theta);
+            cr[i] = c;
+            sr[i] = (i == p) ? -sn : sn;
+          }
+          partner[i] = j;
+        }
+        __syncthreads();
+        for (long long t = tid; t < dd; t += nt) {
+          const int i = (int)(t / d);
+          const int k = (int)(t - (long long)i * d);
+          B[t] = cr[i] * A[t] + sr[i] * A[(long long)partner[i] * d + k];
+        }
+        __syncthreads();
+        for (long long t = tid; t < dd; t += nt) {
+          const int i = (int)(t / d);
+          const int k = (int)(t - (long long)i * d);
+          const long long pk = (long long)i * d + partner[k];
+          A[t] = cr[k] * B[t] + sr[k] * B[pk];
+          W[t] = cr[k] * V[t] + sr[k] * V[pk];
+        }
+        __syncthreads();
+        T* tmp = V;
+        V = W;
+        W = tmp;
+      }
+    }
+    if (converge && !passed) {
+      int bad = 0;
+      const T bound = pd_stop_bound(A, d, d, tol);
+      for (long long t = tid; t < dd; t += nt) {
+        const int i = (int)(t / d);
+        const int k = (int)(t - (long long)i * d);
+        if (i < k && !(stk_abs(A[t]) <= bound)) bad = 1;
+      }
+      if (__syncthreads_or(bad) && tid == 0 && unconverged != nullptr)
+        atomicAdd(unconverged, 1);
+    }
+    int below = 0;
+    for (int i = tid; i < d; i += nt) {
+      const T wi = A[(long long)i * d + i];
+      const bool bi = wi < eps;
+      below |= bi ? 1 : 0;
+      wn[i] = bi ? (mirroring ? -wi : eps) : wi;
+    }
+    const bool any_below = __syncthreads_or(below) != 0;
+    const bool sel = any_below && (elem_mask == nullptr || elem_mask[m] != 0);
+    T* Hom = H_out + m * dd;
+    for (long long t = tid; t < dd; t += nt) {
+      if (sel) {
+        const int i = (int)(t / d);
+        const int k = (int)(t - (long long)i * d);
+        T acc = T(0);
+        for (int j = 0; j < d; ++j)
+          acc += V[(long long)i * d + j] * wn[j] * V[(long long)k * d + j];
+        Hom[t] = acc;
+      } else {
+        Hom[t] = Hm[t];
+      }
+    }
+    if (tid == 0) changed[m] = sel ? 1 : 0;
+    __syncthreads();  // the next matrix overwrites the scratch and wn
+  }
+}
+
+// Blocks and shared bytes of the wide layout; the scratch holds
+// pd_wide_grid(n_mat) * 4 d^2 values.
+static inline int pd_wide_grid(int n_mat) {
+  return n_mat < STK_PD_WIDE_GRID ? n_mat : STK_PD_WIDE_GRID;
+}
+
 template <typename T>
 static int launch_pd_project(const T* H, int n_mat, int d, const int* sched,
-                             int n_rounds, int sweeps, double eps,
+                             int n_rounds, int sweeps, int converge, double eps,
                              int mirroring, const uint8_t* elem_mask, T* H_out,
-                             uint8_t* changed, cudaStream_t stream) {
-  if (d < 1 || d > STK_PD_DMAX) return (int)cudaErrorInvalidValue;
+                             uint8_t* changed, T* scratch, int* unconverged,
+                             cudaStream_t stream) {
+  if (d < 1) return (int)cudaErrorInvalidValue;
   if (n_mat == 0) return stk_launch_status();
+  if (d > STK_PD_DMAX) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t bytes = 3 * (size_t)d * sizeof(T) + (size_t)d * sizeof(int);
+    if (bytes > 48 * 1024) return (int)cudaErrorInvalidValue;
+    pd_project_global_kernel<T><<<pd_wide_grid(n_mat), STK_PD_WIDE_THREADS, bytes, stream>>>(
+        H, n_mat, d, sched, n_rounds, sweeps, converge, (T)eps, mirroring, elem_mask,
+        H_out, changed, scratch, unconverged);
+    return stk_launch_status();
+  }
   const int warps = d <= STK_PD_NARROW ? STK_PD_WARPS : 1;
   const size_t bytes = warps * pd_warp_bytes<T>(d);
   if (bytes > 48 * 1024) {
@@ -159,18 +402,21 @@ static int launch_pd_project(const T* H, int n_mat, int d, const int* sched,
     if (e != cudaSuccess) return (int)e;
   }
   pd_project_kernel<T><<<stk_blocks(n_mat, warps), 32 * warps, bytes, stream>>>(
-      H, n_mat, d, sched, n_rounds, sweeps, (T)eps, mirroring, elem_mask, H_out,
-      changed);
+      H, n_mat, d, sched, n_rounds, sweeps, converge, (T)eps, mirroring, elem_mask,
+      H_out, changed, unconverged);
   return stk_launch_status();
 }
 
+// Kernel C: `sweeps` fixed sweeps, d <= 64.
 STK_API int stk_pd_project_f32(const float* H, int n_mat, int d,
                                const int* sched, int n_rounds, int sweeps,
                                double eps, int mirroring,
                                const uint8_t* elem_mask, float* H_out,
                                uint8_t* changed, cudaStream_t stream) {
-  return launch_pd_project<float>(H, n_mat, d, sched, n_rounds, sweeps, eps,
-                                  mirroring, elem_mask, H_out, changed, stream);
+  if (d > STK_PD_DMAX) return (int)cudaErrorInvalidValue;
+  return launch_pd_project<float>(H, n_mat, d, sched, n_rounds, sweeps, 0, eps,
+                                  mirroring, elem_mask, H_out, changed, nullptr,
+                                  nullptr, stream);
 }
 
 STK_API int stk_pd_project_f64(const double* H, int n_mat, int d,
@@ -178,7 +424,35 @@ STK_API int stk_pd_project_f64(const double* H, int n_mat, int d,
                                double eps, int mirroring,
                                const uint8_t* elem_mask, double* H_out,
                                uint8_t* changed, cudaStream_t stream) {
-  return launch_pd_project<double>(H, n_mat, d, sched, n_rounds, sweeps, eps,
-                                   mirroring, elem_mask, H_out, changed,
-                                   stream);
+  if (d > STK_PD_DMAX) return (int)cudaErrorInvalidValue;
+  return launch_pd_project<double>(H, n_mat, d, sched, n_rounds, sweeps, 0, eps,
+                                   mirroring, elem_mask, H_out, changed, nullptr,
+                                   nullptr, stream);
+}
+
+// Kernel Z: converged mode (converge != 0: at most `sweeps` sweeps, each
+// matrix stopping on its own test) at any d, or fixed sweeps at d > 64;
+// `scratch` (pd_wide_grid(n_mat) * 4 d^2 values) is read only for d > 64,
+// `unconverged` (may be null) counts the matrices the sweeps left
+// unconverged.
+STK_API int stk_pd_project_z_f32(const float* H, int n_mat, int d,
+                                 const int* sched, int n_rounds, int sweeps,
+                                 int converge, double eps, int mirroring,
+                                 const uint8_t* elem_mask, float* H_out,
+                                 uint8_t* changed, float* scratch,
+                                 int* unconverged, cudaStream_t stream) {
+  return launch_pd_project<float>(H, n_mat, d, sched, n_rounds, sweeps, converge,
+                                  eps, mirroring, elem_mask, H_out, changed,
+                                  scratch, unconverged, stream);
+}
+
+STK_API int stk_pd_project_z_f64(const double* H, int n_mat, int d,
+                                 const int* sched, int n_rounds, int sweeps,
+                                 int converge, double eps, int mirroring,
+                                 const uint8_t* elem_mask, double* H_out,
+                                 uint8_t* changed, double* scratch,
+                                 int* unconverged, cudaStream_t stream) {
+  return launch_pd_project<double>(H, n_mat, d, sched, n_rounds, sweeps, converge,
+                                   eps, mirroring, elem_mask, H_out, changed,
+                                   scratch, unconverged, stream);
 }

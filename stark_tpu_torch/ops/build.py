@@ -85,7 +85,11 @@ _SIGNATURES = {
     "stk_segment_reduce": [_P, _I, _P, _P, _I, _P, _P],
     "stk_hvp_bucket": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "stk_pd_project": [_P, _I, _I, _P, _I, _I, _D, _I, _P, _P, _P, _P],
+    "stk_pd_project_z": [_P, _I, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P],
     "stk_block3_inverse": [_P, _I, _D, _P, _P],
+    # kernels AB and AC (the gather-table hvp and the dense run sums)
+    "stk_hvp_table": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
+    "stk_dense_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "stk_block3_apply": [_P, _P, _I, _P, _P],
     "stk_ball_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
                       _P, _P],
@@ -126,6 +130,12 @@ _SIGNATURES.update({"stk_pcg_step1": [_P, _P, _P, _P, _P, _P, _L, _I, _D, _P],
 # entry points without a floating-point operand: one symbol, no suffix
 _UNTYPED = {
     "stk_compact": [_P, _L, _I, _P, _P, _P, _P],
+    # kernel AA: the gather tables
+    "stk_gather_table": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    "stk_gather_hot": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _P],
+    "stk_pair_keys": [_P, _L, _I, _I, _P, _P],
+    "stk_run_heads": [_P, _I, _P, _P],
+    "stk_slot_pids": [_P, _P, _P, _I, _I, _P, _P],
     # kernel X: the conditional-node setter and the body captures
     "stk_graph_set_cond": [ctypes.c_ulonglong, _P, _P],
     "stk_graph_begin_body": [_P, _P, _I, _P, ctypes.POINTER(ctypes.c_ulonglong)],

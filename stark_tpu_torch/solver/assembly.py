@@ -16,7 +16,12 @@ staged solves run:
     in full f32 (TF32 off), as the JAX package leaves them to XLA,
   * the live pool of the contact families (`live_select`): the rows with a
     nonzero element Hessian at the current iterate, compacted through
-    kernel E.
+    kernel E,
+  * JAX's gather-table and dense-direct helpers of the linear-solve tools
+    (`scatter_table`, `hvp_table`, `scatter_table_rows`, `direct_tables`,
+    `assemble_dense_perm`, `dense_inverse`, `direct_solve`, stark_tpu
+    assembly.py:214-249, 524-557, 604-694, 789-835) over kernels AA, AB and
+    AC; `tools/profile_linsolve.py` runs them. No solve path calls them.
 
 `data` is a dict {family_name: {'conn': (E, arity) int64, 'rows': {...,
 'active': (E,)}}} of tensors on one device.
@@ -48,10 +53,13 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import dense_runs as _dense
 from ..ops import egh
+from ..ops import tables as _tables
 from ..ops.block3 import block3_apply, block3_inverse
 from ..ops.compact import compact
 from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
+from ..ops.hvp_table import hvp_table as _hvp_table_kernel
 from ..ops.segment_reduce import Csr, build_csr, segment_reduce
 from .potential import PotentialFamily
 from .program import EagerControl
@@ -134,12 +142,13 @@ class Evaluators:
 
     # ------------------------------------------------------------------
     def to_host(self, x: torch.Tensor):
-        """Python value of a 0-d tensor (one device->host sync)."""
+        """Python value of a 0-d tensor, or list of a 1-d one (one
+        device->host sync)."""
         if self.forbid_reads:
             raise RuntimeError("Evaluators.to_host: a host read inside a body "
                                "of the fused solve's device program")
         self.host_syncs += 1
-        return x.item()
+        return x.item() if x.dim() == 0 else x.tolist()
 
     # ------------------------------------------------------------------
     # topology
@@ -502,6 +511,88 @@ class Evaluators:
         v = r_pad.T.reshape(-1)
         q = M @ v
         return q.reshape(3, N1).T[:self.n_blocks]
+
+    # ------------------------------------------------------------------
+    # gather tables and the dense direct helpers (stark_tpu
+    # assembly.py:214-249, 524-557, 604-694, 789-835): kernels AA-AC. `ctx`
+    # is JAX's {arity: (conn, H, active)}; a single bucket is one entry.
+    # ------------------------------------------------------------------
+    def _ctx_rows(self, ctx):
+        """Flat block rows of a context, inactive rows routed to the dummy
+        segment n_blocks (JAX's scatter_table rows)."""
+        parts = []
+        for a in sorted(ctx):
+            conn, _H, act = ctx[a]
+            parts.append(torch.where(act[:, None], conn.to(torch.int64),
+                                     torch.full_like(conn, self.n_blocks,
+                                                     dtype=torch.int64)).reshape(-1))
+        return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+    def scatter_table(self, ctx, K: int):
+        """(entry (n_blocks, K) int32, R, max_len): the gather table of the
+        context's flat rows (kernel AA); max_len > K signals overflow."""
+        rows = self._ctx_rows(ctx)
+        entry, max_len = _tables.gather_table(rows, self.n_blocks, K)
+        return entry, rows.numel(), max_len
+
+    def hvp_table(self, p, ctx, entry):
+        """q = H p with the gather-table reduction (kernel AB)."""
+        return _hvp_table_kernel(p, [(ctx[a][0], ctx[a][1]) for a in sorted(ctx)], entry)
+
+    def scatter_table_rows(self, rows, K: int, hot_cap: int, K2: int):
+        """Two-level gather table over a flat block-row vector (kernels AA
+        and E): (entry, hot_ids, hot_entry, hot_n, max_deg); max_deg > K + K2
+        or hot_n > hot_cap signal overflow."""
+        return _tables.gather_table_rows(rows, self.n_blocks, K, hot_cap, K2)
+
+    def direct_tables(self, conn_cat, slot_cap: int):
+        """The single bucket's sorted block-pair layout (kernels AA and E):
+        (order, starts, pid_start, n_slots, is_start); n_slots > slot_cap
+        signals overflow."""
+        return _tables.direct_tables(conn_cat, self.n_blocks, slot_cap)
+
+    def assemble_dense_perm(self, H_cat, dtab):
+        """Dense global Hessian in the permuted (component-major) layout,
+        the dummy block an identity (kernel AC)."""
+        return _dense.dense_runs(H_cat, dtab, self.n_blocks, _dense.PERM)
+
+    def dense_inverse(self, H_cat, dtab):
+        """(M, ok): the explicit inverse of the Jacobi-scaled assembled
+        Hessian in the permuted layout, unscaled; the Jacobi diagonal
+        diag(s^2) where the Cholesky fails (JAX's NaNs from
+        jax.lax.linalg.cholesky; here also cholesky_ex's info), selected on
+        the device. Full f32 products: the caller keeps TF32 off."""
+        Hp = self.assemble_dense_perm(H_cat, dtab)
+        n = Hp.shape[0]
+        dg = torch.diagonal(Hp)
+        ok_d = dg > 1e-30
+        s = torch.where(ok_d, torch.rsqrt(torch.clamp_min(dg, 1e-30)), torch.ones_like(dg))
+        Hs = Hp * s[:, None] * s[None, :]
+        Hs = Hs + torch.diag(torch.where(ok_d, 0.0, 1.0).to(Hp.dtype))
+        L, info = torch.linalg.cholesky_ex(Hs)
+        Li = torch.linalg.solve_triangular(
+            L, torch.eye(n, dtype=Hp.dtype, device=Hp.device), upper=False)
+        M = torch.matmul(Li.T, Li) * s[:, None] * s[None, :]
+        ok = (info == 0) & torch.all(torch.isfinite(M))
+        return torch.where(ok, M, torch.diag(s * s)), ok
+
+    def direct_solve(self, grad, H_cat, dtab):
+        """(du, ok): du = -H^-1 grad by the dense Jacobi-scaled Cholesky of
+        the block-major matrix (kernel AC's f64 run sums); du = 0 where the
+        factorization fails, selected on the device."""
+        D = _dense.dense_runs(H_cat, dtab, self.n_blocks, _dense.DIRECT)
+        dg = torch.diagonal(D)
+        ok_d = dg > 1e-30
+        s = torch.where(ok_d, torch.rsqrt(torch.clamp_min(dg, 1e-30)), torch.ones_like(dg))
+        Hs = D * s[:, None] * s[None, :]
+        Hs = Hs + torch.diag(torch.where(ok_d, 0.0, 1.0).to(D.dtype))
+        L, info = torch.linalg.cholesky_ex(Hs)
+        rhs = (-grad.reshape(-1) * s)[:, None]
+        y = torch.linalg.solve_triangular(L, rhs, upper=False)
+        x = torch.linalg.solve_triangular(L.T, y, upper=True)
+        du = (x[:, 0] * s).reshape(self.n_blocks, 3)
+        ok = (info == 0) & torch.all(torch.isfinite(du))
+        return torch.where(ok, du, torch.zeros_like(du)), ok
 
 
 def make_evaluators(families: List[PotentialFamily], n_blocks: int) -> Evaluators:

@@ -16,8 +16,9 @@ the solve's end. On the CPU the same program runs under EagerControl. The
 carry is JAX's Carry (:244-273): fixed shapes, updated in place; the
 contact and friction tables stay at their capacities, as JAX keeps them
 (rows past a count are inactive padding, which the element kernels
-evaluate to zero); the outcome codes, the 16-float stats vector and the
-count keys are JAX's.
+evaluate to zero); the outcome codes, the 16-float stats vector (and, 17th,
+kernel Z's count of unconverged projections) and the count keys are
+JAX's.
 
 Contact (`engine` not None) uses the JAX package's twin-range frozen
 candidate topology:
@@ -76,7 +77,7 @@ def uses_friction(engine) -> bool:
 
 class FusedSolve:
     """The fused solve of build_fused_solve: f(u0, static_data, glob,
-    params, M0, topo) -> (u, packed (16,) float32 stats, counts (n_keys,)
+    params, M0, topo) -> (u, packed (17,) float32 stats, counts (n_keys,)
     int32, M). Each call binds its arguments to the Program of its key (a
     CUDA graph on the card, captured at the key's first call; the program
     under EagerControl on the CPU or with `eager`), keeping one Program:
@@ -197,7 +198,7 @@ def build_fused_solve(nm, engine=None, eager: bool = False, strict: bool = False
             n_broad_rb=zi(), n_pair_rb=zi(),
             M=M0.clone() if use_direct else torch.zeros((0, 0), dtype=ftype, device=dev),
             m_q=torch.full((), 1e9, dtype=ftype, device=dev), n_cold=zi(),
-            init_bad=zb())
+            init_bad=zb(), eig_unconv=zi())
         # what the shell rebuilds bind (read only after their IF has run)
         sh = SimpleNamespace(bcands=None, icands={}, data=None, egh_csr=None)
 
@@ -332,11 +333,11 @@ def build_fused_solve(nm, engine=None, eager: bool = False, strict: bool = False
                     hess_stat, eps, mirroring,
                     {n: data[n] for n in stat_names},
                     jacobi_sweeps=nm._jacobi_sweeps,
-                    psd_names=nm._psd_names)
+                    psd_names=nm._psd_names, unconverged=c.eig_unconv)
                 if dyn_names:
                     H_live, ch = project.project_family_to_pd(
                         H_live, eps, mirroring, elem_mask=live_valid,
-                        jacobi_sweeps=nm._jacobi_sweeps)
+                        jacobi_sweeps=nm._jacobi_sweeps, unconverged=c.eig_unconv)
                     n_proj_it = n_proj_it + torch.sum(ch.to(torch.int32))
             else:
                 hess_stat_p, n_proj_it = hess_stat, zi()
@@ -508,7 +509,7 @@ def build_fused_solve(nm, engine=None, eager: bool = False, strict: bool = False
         packed = torch.stack([x.to(torch.float32).reshape(()) for x in (
             code, c.it, c.cg_total, c.ls_cap, c.ls_max, c.ls_inv, c.ls_bt, c.n_proj,
             c.n_hess, c.res, c.E_prev, c.du_prev, c.n_broad_rb, c.n_pair_rb, c.m_q,
-            c.n_cold)])
+            c.n_cold, c.eig_unconv)])
         return c.u, packed, c.counts_max, c.M
 
     return FusedSolve(fused_solve, key_of, eager=eager,

@@ -55,6 +55,8 @@ from .program import EagerControl
 NO_FUSED_ENV = "STARK_TPU_TORCH_NO_FUSED"
 
 _NP_DTYPE = {torch.float32: np.float32, torch.float64: np.float64}
+# entries of the fused solve's float32 stats vector (solver/fused.py)
+_N_PACKED = 17
 
 
 class SolverReturn(Enum):
@@ -278,8 +280,8 @@ class NewtonsMethod:
                                  counts_dev.view(torch.uint8)]).cpu().numpy()
                 reads += 1
                 u_np = raw[:n_u].view(_NP_DTYPE[dtype]).reshape(tuple(u0.shape))
-                packed = raw[n_u:n_u + 64].view(np.float32)
-                counts = raw[n_u + 64:].view(np.int32)
+                packed = raw[n_u:n_u + 4 * _N_PACKED].view(np.float32)
+                counts = raw[n_u + 4 * _N_PACKED:].view(np.int32)
                 over = self._bump_caps(engine, keys, counts)
                 if not over:
                     break
@@ -298,6 +300,7 @@ class NewtonsMethod:
         self.stats.host_syncs = self._ev.host_syncs - syncs0 + reads
         self.logger.add_and_append("driver_reads", self._fused.driver_reads - driver0)
         self._last_counts = {k: int(c) for k, c in zip(keys, counts)}
+        project.raise_unconverged(int(packed[16]))
 
         code = int(packed[0])
         self.logger.append("solver_code", code)
@@ -600,7 +603,15 @@ class NewtonsMethod:
         inactive rows) under the projection mode and its state."""
         s = self.settings
         mode = s.projection_mode
-        kw = dict(jacobi_sweeps=self._jacobi_sweeps, psd_names=self._psd_names)
+        unconv = torch.zeros((), dtype=torch.int32, device=self.device)
+        kw = dict(jacobi_sweeps=self._jacobi_sweeps, psd_names=self._psd_names,
+                  unconverged=unconv)
+
+        def read(n):
+            # the projected count and kernel Z's unconverged count in one read
+            n, n_un = self._ev.to_host(torch.stack([n.to(torch.int32), unconv]))
+            project.raise_unconverged(n_un)
+            return n
         with self.logger.time("project_to_PD"):
             if mode == ProjectionToPD.Newton:
                 return hess_raw, False, 0, False
@@ -608,7 +619,7 @@ class NewtonsMethod:
                     mode == ProjectionToPD.ProjectOnDemand and self._pdn_countdown > 0):
                 hess, n = project.project_all(hess_raw, s.projection_eps,
                                               s.project_to_pd_use_mirroring, data, **kw)
-                return hess, True, self._ev.to_host(n), True
+                return hess, True, read(n), True
             if mode == ProjectionToPD.ProjectOnDemand:
                 return hess_raw, False, 0, False
             if mode == ProjectionToPD.Progressive:
@@ -623,7 +634,7 @@ class NewtonsMethod:
                 hess, n = project.project_selective(
                     hess_raw, data, s.projection_eps, s.project_to_pd_use_mirroring,
                     block_mask, **kw)
-                return hess, all_projected, self._ev.to_host(n), False
+                return hess, all_projected, read(n), False
         raise ValueError(f"unknown projection mode {mode}")
 
     def _increase_projection(self, grad):

@@ -11,7 +11,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..ops import pcg_step as Y
-from ..solver import assembly, project
+from ..solver import assembly
 from ..solver.fused import build_fused_solve
 from ..solver.pcg import pcg_init
 from ..solver.program import Program
@@ -75,41 +75,15 @@ def loop_program(n_in, ctl):
 # ---------------------------------------------------------------------------
 def newton_system(sim):
     """(A, Minv, b) of the Newton system at the simulation's state, as the
-    fused solve forms it: tables at its capacities, static families
-    projected, the live pool, kernel B's operator and kernel D's
-    block-Jacobi preconditioner."""
-    nm = sim.stark.newton
-    ev, topo = nm._ev, nm._topo
-    data = dict(sim._get_static_data())
-    glob = sim._get_glob()
-    u = sim._get_dofs().clone()
-    eng = nm._engine()
-    egh_csr = None
-    if eng is not None:
-        params = nm._engine_params(eng, u.dtype)
-        th, slack_p = params["th"], params["slack_pair"]
-        Vs, Vr = eng.world_from_u(u, params["eng_state"], glob["dt"])
-        mc, _ic, _c = eng.broad_fn(Vs, Vr, th, params["slack_broad_min"], slack_p)
-        tables, _c = eng.pairs_fn(Vs, Vr, th, mc, slack_p)
-        data.update(tables)
-        egh_csr = ev.egh_csr(data)
-    _E, _aux, grad, hess = ev.energy_grad_hess(u, data, glob, topo, egh_csr)
-    stat, dyn = ev.split_dyn(hess.keys())
-    eps, sweeps = nm.settings.projection_eps, nm._jacobi_sweeps
-    hp, _ = project.project_all({k: hess[k] for k in stat}, eps, False,
-                                {k: data[k] for k in stat}, jacobi_sweeps=sweeps,
-                                psd_names=nm._psd_names)
-    pool = None
-    if dyn:
-        conn_live, H_live, valid, _cnt = ev.live_select(
-            ev.dyn_conn_cat(data), ev.dyn_hess_cat(hess), nm._pool_cap)
-        H_live, _ch = project.project_family_to_pd(H_live, eps, False, elem_mask=valid,
-                                                   jacobi_sweeps=sweeps)
-        pool = ev.live_pool(conn_live, H_live, topo.pid_csr is not None)
-    _c, H_cat = ev.cat_with_live(topo.conn_cat, hp)
-    Dinv = assembly.precondition_inverse(ev.diag_bucket(H_cat, topo, pool))
-    return (lambda p: ev.hvp_bucket(p, H_cat, topo, pool),
-            lambda r: assembly.apply_preconditioner(Dinv, r), -grad.contiguous())
+    fused solve forms it (tools/profile_linsolve.linear_system): kernel B's
+    operator and kernel D's block-Jacobi preconditioner."""
+    from .profile_linsolve import linear_system
+
+    st = linear_system(sim)
+    ev, topo, pool = st.ev, st.topo, st.pool
+    Dinv = assembly.precondition_inverse(ev.diag_bucket(st.H_stat, topo, pool))
+    return (lambda p: ev.hvp_bucket(p, st.H_stat, topo, pool),
+            lambda r: assembly.apply_preconditioner(Dinv, r), (-st.grad).contiguous())
 
 
 def _ratio(out, ref, tol):
@@ -122,7 +96,8 @@ def pcg_step_check(A, Minv, b, steps: int = 3, k: float = 64.0) -> dict:
     same inputs on the CPU; the iteration goes on from the kernel's state.
     The dots obey the sum rule (k eps sum |terms|); x, r and p move with
     alpha and beta, so their bound is k eps |value| plus the step's
-    relative dot error times |alpha p|, |alpha Ap| and |beta p|. Returns
+    relative dot error times |alpha p|, |alpha Ap| and |beta p|, alpha,
+    beta and p taken before the step. Returns
     the worst error/bound ratio and the flags' agreement."""
     dtype = b.dtype
     eps = torch.finfo(dtype).eps
@@ -149,14 +124,16 @@ def pcg_step_check(A, Minv, b, steps: int = 3, k: float = 64.0) -> dict:
         flags_ok &= torch.equal(si.cpu()[Y.STOP_INDEF:Y.PRED], cpu[5][Y.STOP_INDEF:Y.PRED])
         z = Minv(r).contiguous()
         cpu = [t.cpu().clone() for t in (z, r, p, sf, si)]
+        # the step's beta and p are the values before it: p = z + beta p_old
+        p_old, rz_old = cpu[2].clone(), float(cpu[3][Y.RZ])
         Y.pcg_step2_plain(*cpu, 1 << 30)
         Y.pcg_step2(z, r, p, sf, si, 1 << 30)
         z0, r0 = cpu[0].double(), cpu[1].double()
         rz_terms = float(torch.sum(torch.abs(r0 * z0)))
         rz_new = float(torch.sum(r0 * z0))
         rel_b = k * eps * rz_terms / max(abs(rz_new), 1e-300)
-        beta = float(cpu[3][Y.RZ]) / max(abs(float(sf.cpu()[Y.RZ])), 1e-300)
-        tol_p = k * eps * torch.abs(cpu[2]) + rel_b * abs(beta) * torch.abs(p.cpu()) \
+        beta = float(cpu[3][Y.RZ]) / max(abs(rz_old), 1e-300)
+        tol_p = k * eps * torch.abs(cpu[2]) + rel_b * abs(beta) * torch.abs(p_old) \
             + torch.finfo(dtype).tiny
         max_abs = max(max_abs, float(torch.max(torch.abs(p.cpu() - cpu[2]))))
         worst = max(worst, _ratio(p.cpu(), cpu[2], tol_p),

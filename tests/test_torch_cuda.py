@@ -153,8 +153,25 @@ def test_pd_project_wide_matches_twin(dev, dtype, d, sweeps):
 
 
 def test_pd_project_refuses_exact_eigh_on_cuda(dev):
-    with pytest.raises(ValueError, match="exact eigh"):
-        pd.pd_project(torch.eye(4, device=dev)[None], 1e-9, False, None, 0)
+    """Exact eigh (jacobi_sweeps = 0) on the card no longer refuses: it is
+    kernel Z's converged Jacobi, within 2000 eps max|H_e| of its twin and
+    of the float64 eigh projection, every matrix converged."""
+    rng = np.random.default_rng(4)
+    A = rng.normal(size=(64, 4, 4))
+    H = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), device=dev)
+    before = build.launches["pd_project_z"]
+    unconv = torch.zeros((), dtype=torch.int32, device=dev)
+    out, ch = pd.pd_project_z(H, 1e-9, False, None, 0, unconv)
+    legacy, ch_legacy = pd.pd_project(H, 1e-9, False, None, 0)
+    ref, ch_ref = pd.pd_project_z_plain(H.cpu(), 1e-9, False, None, 0)
+    exact, _ch = pd.pd_project_plain(H.cpu(), 1e-9, False, None, 0)
+    torch.cuda.synchronize()
+    assert build.launches["pd_project_z"] == before + 2 and int(unconv) == 0
+    assert torch.equal(ch.cpu(), ch_ref) and torch.equal(ch_legacy.cpu(), ch_ref)
+    tol = 2000.0 * torch.finfo(H.dtype).eps * H.cpu().abs().amax(dim=(1, 2), keepdim=True)
+    assert torch.all((out.cpu() - ref).abs() <= tol)
+    assert torch.all((out.cpu() - exact).abs() <= tol)
+    assert torch.equal(out, legacy)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -1231,20 +1248,211 @@ def test_fused_graph_recaptures_on_overflow(dev):
 
 
 def test_soft_boxes_exact_eigh_on_card_track_the_cpu_port(dev, monkeypatch):
-    """ROADMAP Queue 3 item 5: jacobi_sweeps = 0 runs exact eigh on the card,
-    as JAX does. torch.linalg.eigh cannot be captured, so the fused solve
-    raises at its capture and names the cause; the staged solver
-    (STARK_TPU_TORCH_NO_FUSED=1) runs the soft boxes for two steps with the
-    CPU port's staged codes and Newton counts."""
+    """jacobi_sweeps = 0, JAX's exact eigh, on the card: kernel Z's
+    converged Jacobi inside the fused solve's CUDA graph (one host read per
+    solve) runs the soft boxes for two f64 steps with the CPU port's codes
+    and Newton counts (the CPU's exact eigh), positions within 1e-6 m; the
+    staged solver (STARK_TPU_TORCH_NO_FUSED=1) likewise."""
     from stark_tpu_torch.tools.scenes import deformable_and_rigid_collisions
 
-    sim, _h = deformable_and_rigid_collisions("float64", "cuda", 2, 1)
+    build.reset_launches()
+    sim, (h1, h2, _f) = deformable_and_rigid_collisions("float64", "cuda", 2, 1)
     sim.stark.settings.device.jacobi_sweeps = 0
-    with pytest.raises(RuntimeError, match="cannot be captured"):
-        sim.run_one_time_step()
+    lg = sim.get_logger()
+    for _ in range(2):
+        retraces = lg.get_int("fused_retraces")
+        assert sim.run_one_time_step()
+        nm = sim.stark.newton
+        assert nm.stats.host_syncs == 1 + lg.get_int("fused_retraces") - retraces
+    assert nm._fused.captures >= 1 and build.launches["pd_project_z"] > 0
+    assert build.launches["pd_project"] == 0
+    x_fused = np.concatenate([h1.point_set.get_positions(), h2.point_set.get_positions()])
+    x_cpu, codes_cpu, newton_cpu, _f = _soft_boxes("cpu", 0, steps=2)
+    print(f"sweeps 0, fused: Newton per step card {lg.series['newton_iterations']}, "
+          f"CPU {newton_cpu}")
+    assert lg.series["solver_code"] == codes_cpu
+    assert lg.series["newton_iterations"] == newton_cpu
+    assert np.max(np.abs(x_fused - x_cpu)) < 1e-6
     monkeypatch.setenv("STARK_TPU_TORCH_NO_FUSED", "1")
     x_gpu, codes_gpu, newton_gpu, _f = _soft_boxes("cuda", 0, steps=2)
     x_cpu, codes_cpu, newton_cpu, _f = _soft_boxes("cpu", 0, steps=2)
     print(f"sweeps 0, staged: Newton per step card {newton_gpu}, CPU {newton_cpu}")
     assert codes_gpu == codes_cpu and newton_gpu == newton_cpu
     assert np.max(np.abs(x_gpu - x_cpu)) < 1e-6
+
+
+
+# ---------------------------------------------------------------------------
+# kernel Z: JAX's exact-eigh branch as Jacobi to convergence, and d > 64
+# ---------------------------------------------------------------------------
+def _z_case(d, dtype, dev, E):
+    rng = np.random.default_rng(d)
+    A = rng.normal(size=(E, d, d))
+    H = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), dtype=dtype, device=dev)
+    # PD, passing through: shifted by d so that no eigenvalue lies within
+    # the dtype's noise (eps d |H|) of the clamp, where `changed` would be
+    # a coin toss between two correct eigensolvers
+    H[::3] = H[::3] @ H[::3].transpose(1, 2) + d * torch.eye(d, dtype=dtype, device=dev)
+    mask = torch.as_tensor(rng.random(E) < 0.8, device=dev)
+    return H, mask
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [3, 9, 64, 65, 128])
+def test_pd_project_z_matches_twin(dev, dtype, d):
+    """Kernel Z converged (jacobi_sweeps = 0) against its twin, both within
+    2000 eps max|H_e| of the float64 eigh projection (the stop test makes
+    both converge), every matrix converged; at d > 64 also the wide layout
+    at JAX's fixed sweeps (12) against the twin's `_jacobi_eigh`: where the
+    twin converged (within 100 eps max|H_e| of eigh) within 2000 eps
+    max|H_e| of it, else the kernel's largest distance from the projection
+    within twice the twin's."""
+    E = 257 if d <= 16 else 33
+    H, mask = _z_case(d, dtype, dev, E)
+    eps = torch.finfo(dtype).eps
+    scale = H.double().cpu().abs().amax(dim=(1, 2))
+    w, V = torch.linalg.eigh(H.double().cpu())
+    exact = torch.einsum("eij,ej,ekj->eik", V, torch.where(w < 1e-9, -w, w), V)
+    unconv = torch.zeros((), dtype=torch.int32, device=dev)
+    out, ch = tproj.project_family_to_pd(H, 1e-9, True, mask, jacobi_sweeps=0,
+                                         unconverged=unconv)
+    ref, ch_ref = pd.pd_project_z_plain(H, 1e-9, True, mask, 0)
+    torch.cuda.synchronize()
+    assert int(unconv) == 0 and torch.equal(ch, ch_ref)
+    assert torch.equal(out[~ch], H[~ch])
+    c = ch.cpu()
+    tol = 2000.0 * eps * scale[:, None, None]
+    assert torch.all(((out - ref).double().cpu().abs() <= tol)[c])
+    assert torch.all(((out.double().cpu() - exact).abs() <= tol)[c])
+    if d <= 64:
+        return
+    sweeps = 12
+    before = build.launches["pd_project_z"]
+    out, ch = tproj.project_family_to_pd(H, 1e-9, True, mask, jacobi_sweeps=sweeps)
+    ref, ch_ref = pd.pd_project_z_plain(H, 1e-9, True, mask, sweeps)
+    torch.cuda.synchronize()
+    assert build.launches["pd_project_z"] == before + 1 and torch.equal(ch, ch_ref)
+    spread = (ref.double().cpu() - exact).abs().amax(dim=(1, 2))
+    dist = (out.double().cpu() - exact).abs().amax(dim=(1, 2))
+    err = (out - ref).double().cpu().abs().amax(dim=(1, 2))
+    conv = c & (spread <= 100.0 * eps * scale)
+    print(f"d={d} {dtype} {sweeps} sweeps: {int(conv.sum())} of {int(c.sum())} converged")
+    assert torch.all(err[conv] <= 2000.0 * eps * scale[conv])
+    un = c & ~conv
+    if un.any():
+        assert float((dist / scale)[un].max()) <= 2.0 * float((spread / scale)[un].max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [3, 12, 96])
+def test_pd_project_z_in_a_captured_graph(dev, dtype, d, monkeypatch):
+    """Kernel Z captured into a CUDA graph and replayed: the converged mode
+    with its device-side stop, and its count of unconverged matrices (a
+    sweep limit of 1, which no matrix here meets: every one counted, as the
+    twin counts them at that limit), with no host read."""
+    E = 64 if d <= 16 else 5
+    H, _m = _z_case(d, dtype, dev, E)
+    ref, ch_ref = pd.pd_project_z_plain(H, 1e-9, False, None, 0)
+    for limit in (pd.Z_MAX_SWEEPS, 1):
+        monkeypatch.setattr(pd, "Z_MAX_SWEEPS", limit)
+        unconv = torch.zeros((), dtype=torch.int32, device=dev)
+        pd.pd_project_z(H, 1e-9, False, None, 0, unconv)      # warm-up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            unconv.zero_()
+            out, ch = pd.pd_project_z(H, 1e-9, False, None, 0, unconv)
+        graph.replay()
+        torch.cuda.synchronize()
+        _w, _V, n_un, _sw = pd._jacobi_eigh_converged(H.cpu(), max_sweeps=limit)
+        assert int(unconv) == int(n_un)
+        if limit == 1:
+            assert int(n_un) > 0
+            continue
+        assert int(unconv) == 0 and torch.equal(ch, ch_ref)
+        tol = 2000.0 * torch.finfo(dtype).eps * H.abs().amax(dim=(1, 2), keepdim=True)
+        assert torch.all((out - ref).abs() <= tol)
+
+
+# ---------------------------------------------------------------------------
+# kernels AA-AC: JAX's gather-table and dense-direct helpers
+# ---------------------------------------------------------------------------
+def _bucket(dev, dtype, n=300, E=900, b=5, seed=0):
+    rng = np.random.default_rng(seed)
+    conn = rng.integers(0, n, size=(E, b))
+    conn[rng.random((E, b)) < 0.1] = n
+    conn[: E // 10] = n                                  # inactive rows
+    conn[E // 2: E // 2 + 40, 0] = 7                     # one hot block
+    A = rng.normal(size=(E, 3 * b, 3 * b))
+    H = torch.as_tensor(A @ A.transpose(0, 2, 1), dtype=dtype)
+    return torch.as_tensor(conn, dtype=torch.int32), H
+
+
+@pytest.mark.parametrize("K", [4, 32])
+def test_gather_tables_match_twin(dev, K):
+    """Kernel AA's three table builds (and kernel E's compactions in them)
+    against their twins, bit for bit, overflow signals included (K = 4:
+    runs longer than K, more hot blocks than the side table holds; a slot
+    capacity below the slot count)."""
+    from stark_tpu_torch.ops import tables as tb
+
+    conn, _H = _bucket(dev, torch.float64)
+    n = 300
+    rows = conn.reshape(-1)
+    before = dict(build.launches)
+    e, m = tb.gather_table(rows.to(dev), n, K)
+    e_r, m_r = tb.gather_table_plain(rows.long(), n, K)
+    out = tb.gather_table_rows(rows.to(dev), n, K, 4, 16)
+    out_r = tb.gather_table_rows_plain(rows.long(), n, K, 4, 16)
+    torch.cuda.synchronize()
+    assert torch.equal(e.cpu(), e_r) and int(m) == int(m_r)
+    for a, b in zip(out, out_r):
+        assert torch.equal(a.cpu().long(), b.long())
+    if K == 4:
+        assert int(m) > K and int(out[3]) > 4
+    for cap in (64, 1 << 14):
+        d = tb.direct_tables(conn.to(dev), n, cap)
+        d_r = tb.direct_tables_plain(conn, n, cap)
+        torch.cuda.synchronize()
+        for a, b in zip(d, d_r):
+            assert torch.equal(a.cpu().long(), b.long())
+    assert build.launches["gather_tables[scatter_table]"] == \
+        before.get("gather_tables[scatter_table]", 0) + 1
+    assert build.launches["gather_tables[scatter_table_rows]"] == \
+        before.get("gather_tables[scatter_table_rows]", 0) + 2
+    assert build.launches["gather_tables[direct_tables]"] == \
+        before.get("gather_tables[direct_tables]", 0) + 6
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hvp_table_and_dense_runs_match_twin(dev, dtype):
+    """Kernel AB against its twin within 64 eps sum|terms|; kernel AC's two
+    layouts against theirs within 64 eps sum|terms|: the segmented scan in
+    the input dtype over each run's terms, the f64 cumsum (JAX's
+    direct_solve) over each run's terms in the dtype and over the prefix it
+    differences in float64."""
+    from stark_tpu_torch.ops import dense_runs as dr, hvp_table as htb, tables as tb
+
+    conn, H = _bucket(dev, dtype)
+    n = 300
+    p = torch.as_tensor(np.random.default_rng(1).normal(size=(n, 3)), dtype=dtype)
+    entry, _m = tb.gather_table_plain(conn.reshape(-1).long(), n, 64)
+    q = htb.hvp_table(p.to(dev), [(conn.to(dev), H.to(dev))], entry.to(dev))
+    ref = htb.hvp_table_plain(p, [(conn, H)], entry)
+    absref = htb.hvp_table_plain(p.abs(), [(conn, H.abs())], entry)
+    torch.cuda.synchronize()
+    assert torch.all((q.cpu() - ref).abs() <= _tol(absref, dtype, 64.0))
+    dtab = tb.direct_tables_plain(conn, n, 1 << 15)
+    dtab_d = tb.DirectTables(*(t.to(dev) for t in dtab))
+    for layout in (dr.PERM, dr.DIRECT):
+        out = dr.dense_runs(H.to(dev), dtab_d, n, layout)
+        ref = dr.dense_runs_plain(H, dtab, n, layout)
+        if layout == dr.PERM:
+            tol = _tol(dr.dense_runs_plain(H.abs().double(), dtab, n, layout), dtype, 64.0)
+        else:
+            # the twin differences JAX's f64 cumsum: its error scales with
+            # the prefix's sum |terms|, the kernel's with the run's
+            run_abs, prefix_abs = dr.direct_sum_scales(H, dtab, n)
+            tol = _tol(run_abs, dtype, 64.0) + _tol(prefix_abs, torch.float64, 64.0)
+        torch.cuda.synchronize()
+        assert torch.all((out.cpu().double() - ref.double()).abs() <= tol), layout

@@ -132,6 +132,16 @@ K12_SLICE = [
 ]
 
 
+# the linear-solve helpers: kernels AA-AC's wrappers and twins, kernel Z's
+# (in the projection's module), and the profiler that runs them
+LINSOLVE_SLICE = [
+    "stark_tpu_torch.ops.tables",
+    "stark_tpu_torch.ops.hvp_table",
+    "stark_tpu_torch.ops.dense_runs",
+    "stark_tpu_torch.tools.profile_linsolve",
+]
+
+
 def test_port_has_files():
     files = _port_files()
     assert len(files) > 20
@@ -143,10 +153,11 @@ def test_port_has_files():
     assert set(VOLUME_SLICE) <= names
     assert set(ATTACHMENT_IO_SLICE) <= names
     assert set(K12_SLICE) <= names
+    assert set(LINSOLVE_SLICE) <= names
 
 
 @pytest.mark.parametrize("name", CONTACT_SLICE + STAGED_SLICE + EGH_SLICE + VOLUME_SLICE
-                         + ATTACHMENT_IO_SLICE + K12_SLICE)
+                         + ATTACHMENT_IO_SLICE + K12_SLICE + LINSOLVE_SLICE)
 def test_contact_slice_module_imports(name):
     """Each module of the contact slice imports on a machine without a card
     or nvcc (no kernel is built at import time)."""

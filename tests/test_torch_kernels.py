@@ -267,7 +267,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
     """Only a CPU tensor takes the twin. Any other device goes to the kernel
     path, whose checks raise before a launch (no silent fallback)."""
     meta = torch.zeros((4, 3, 3), dtype=torch.float64, device="meta")
-    with pytest.raises(ValueError, match="exact eigh"):
+    # exact eigh off the CPU is kernel Z's converged mode
+    with pytest.raises(ValueError, match="pd_project_z: expected CUDA"):
         pd.pd_project(meta, 1e-9, False, None, 0)
     with pytest.raises(ValueError, match="exceeds"):
         pd.pd_project(torch.zeros((4, 17, 17), device="meta"), 1e-9, False, None, 8)
@@ -294,4 +295,93 @@ def test_project_sends_wide_blocks_to_kernel_c(d):
     Hc = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)))
     out, ch = pd.pd_project_wide(Hc, 1e-9, True, None, 8)
     ref, ch_ref = pd.pd_project_plain(Hc, 1e-9, True, None, 8)
+    assert torch.equal(out, ref) and torch.equal(ch, ch_ref)
+
+
+@pytest.fixture
+def one_thread():
+    """Z's twin runs many small tensor ops: on one torch thread, so that the
+    suite's parallel workers do not oversubscribe the cores (the port's
+    scene tests do the same)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _clustered(rng, d, E, eps_p):
+    """E random symmetric (d, d) matrices, the last with repeated
+    eigenvalues: a pair at -0.5 (below eps_p), a pair at 2 (above) and,
+    from d = 6, a pair straddling eps_p (0.5 eps_p and 1.5 eps_p)."""
+    A = rng.standard_normal((E, d, d))
+    H = 0.5 * (A + np.swapaxes(A, 1, 2))
+    Q, _ = np.linalg.qr(rng.standard_normal((d, d)))
+    w = rng.uniform(-1.0, 2.0, d)
+    w[:2] = -0.5
+    if d >= 4:
+        w[2:4] = 2.0
+    if d >= 6:
+        w[4:6] = (0.5 * eps_p, 1.5 * eps_p)
+    H[-1] = (Q * w) @ Q.T
+    return 0.5 * (H + np.swapaxes(H, 1, 2))
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("d", [3, 9, 12, 24, 65, 96])
+@pytest.mark.usefixtures("one_thread")
+def test_kernel_z_twin_matches_eigh_and_jax(d, dtype):
+    """Kernel Z's twin (Jacobi to convergence, JAX's exact-eigh branch on
+    the card) against the exact projection (float64 eigh) and against
+    project_family_to_pd at jacobi_sweeps = 0, within 2000 eps max|H_e| per
+    matrix, with mirroring off and on (on only past 64 DOFs, where the twin's
+    sweeps dominate the test's time); every matrix converges."""
+    rng = np.random.default_rng(d)
+    eps_p = 1e-3
+    H = _clustered(rng, d, 16 if d <= 24 else 2, eps_p).astype(dtype)
+    Ht = torch.as_tensor(H)
+    scale = np.abs(H.astype(np.float64)).max(axis=(1, 2))[:, None, None]
+    tol = 2000.0 * np.finfo(dtype).eps * scale
+    for mirroring in (False, True) if d <= 64 else (True,):
+        unconv = torch.zeros((), dtype=torch.int32)
+        out, ch = pd.pd_project_z_plain(Ht, eps_p, mirroring, None, 0, unconverged=unconv)
+        assert int(unconv) == 0
+        exact, ch_x = pd.pd_project_plain(Ht.double(), eps_p, mirroring, None, 0)
+        out_j, ch_j = jproj.project_family_to_pd(jnp.asarray(H), eps_p, mirroring, None, 0)
+        np.testing.assert_array_equal(ch.numpy(), np.asarray(ch_j))
+        np.testing.assert_array_equal(ch.numpy(), ch_x.numpy())
+        o = out.double().numpy()
+        assert np.all(np.abs(o - exact.numpy()) <= tol)
+        assert np.all(np.abs(o - np.asarray(out_j, dtype=np.float64)) <= tol)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_kernel_z_counts_unconverged_blocks():
+    """A sweep limit the matrices cannot meet leaves them counted, and the
+    solvers' check raises with the count."""
+    rng = np.random.default_rng(0)
+    A = rng.standard_normal((5, 12, 12))
+    H = torch.as_tensor(0.5 * (A + np.swapaxes(A, 1, 2)))
+    _w, _V, n_un, sweeps = pd._jacobi_eigh_converged(H, max_sweeps=1)
+    assert int(n_un) == 5 and torch.equal(sweeps, torch.ones(5, dtype=torch.int64))
+    _w, _V, n_un, sweeps = pd._jacobi_eigh_converged(H)
+    assert int(n_un) == 0 and 2 <= int(sweeps.min()) and int(sweeps.max()) <= pd.Z_MAX_SWEEPS
+    with pytest.raises(RuntimeError, match="5 element Hessian"):
+        tproj.raise_unconverged(5)
+    tproj.raise_unconverged(0)
+
+
+@pytest.mark.parametrize("d,sweeps", [(3, 8), (2, 8), (9, 0), (64, 0), (65, 8), (96, 0)])
+@pytest.mark.usefixtures("one_thread")
+def test_project_sends_exact_eigh_and_wide_blocks_to_kernel_z(d, sweeps):
+    """Off the CPU, JAX's exact-eigh branch (sweeps 0, or d <= 3) and blocks
+    of more than 64 DOFs go to kernel Z, whose checks raise before a launch
+    on a meta tensor; on the CPU the route is the twin, eigh as JAX's."""
+    H = torch.zeros((2, d, d), device="meta")
+    with pytest.raises(ValueError, match="pd_project_z: expected CUDA"):
+        tproj.project_family_to_pd(H, 1e-9, False, jacobi_sweeps=sweeps)
+    rng = np.random.default_rng(d)
+    A = rng.standard_normal((3, d, d))
+    Hc = torch.as_tensor(0.5 * (A + np.swapaxes(A, 1, 2)))
+    out, ch = tproj.project_family_to_pd(Hc, 1e-9, True, jacobi_sweeps=sweeps)
+    ref, ch_ref = pd.pd_project_plain(Hc, 1e-9, True, None, sweeps)
     assert torch.equal(out, ref) and torch.equal(ch, ch_ref)
