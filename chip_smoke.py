@@ -69,11 +69,14 @@ Phases (every failure propagates; nothing is caught):
      squeezed to a third of its width under Progressive (the projection
      ladder escalates: kernel C with its selective mask), and
      tests/test_rb_constraints.py's global_point scene and a hinge (kernels
-     T and U) on DirectLLT at 2 ms for 50 steps;
+     T and U) on DirectLLT at 2 ms for 50 steps; the three DirectLLT runs
+     print their Newton counts and a hash of their final positions;
  16. hold kernel B at its staged site and the K16 lists (exactly) against
      their twins in f32 and f64 at phase 14's final state, and the whole
      contact refresh against the engine's twin path; kernel A's direct site
-     on phase 15's DirectLLT input; time them and the Cholesky (phases 14
+     on phase 15's DirectLLT input, bit for bit against its twin and the
+     former design (CSR, segmented sum, permute), timed against both and
+     the fill plus index_add_ yardstick; time them and the Cholesky (phases 14
      and 16 run in a child process, `chip_smoke.py --staged OUT`, started
      with phase 9's);
  17. kernels M-W, the element energies, gradients and Hessians: phases 4,
@@ -156,7 +159,9 @@ Phases (every failure propagates; nothing is caught):
      profile (JAX's gather-table and dense-direct helpers, kernels AA-AC,
      beside the solver's hvp, Newton-Schulz refresh and PCG), with the
      launches of AA-AC counted over it; AA's tables bit for bit and AB, AC
-     within the sum rule against their twins there, each timed; kernel Z
+     within the sum rule against their twins there (AB in f32 and f64, two
+     launches the same bits; AB and its sparse.mm yardstick timed alike),
+     each timed; kernel Z
      (JAX's exact-eigh branch: jacobi_sweeps = 0 and every d <= 3, here the
      box's fix at d = 3, which phase 7 ran through Z; and a seeded d = 96
      stack, its wide layout) against its twin; and phase 19's soft boxes at
@@ -176,6 +181,7 @@ contact rows and reruns phases 10, 18 and 19 under variants (witness_run).
 from __future__ import annotations
 
 import gzip
+import hashlib
 import json
 import os
 import subprocess
@@ -507,6 +513,23 @@ def run_steps(sim, n_steps):
     return launches, dict(steps=steps, newton=newton, cg=cg, wall_s=wall,
                           ms_per_newton=1e3 * wall / max(newton, 1),
                           host_syncs_per_step=syncs / max(steps, 1))
+
+
+def trajectory_digest(sim) -> dict:
+    """A run's Newton iterations per step and its final positions (the
+    points' x1, the bodies' t1 and q1) as a hash of their f64 bytes and a
+    sum: two builds whose linear systems agree bit for bit print the same."""
+    parts = []
+    if sim._dyn.n_points:
+        parts.append(sim._dyn.x1.detach().double().cpu().numpy())
+    if sim._rb_dyn.n_bodies:
+        parts += [np.asarray(sim._rb_dyn.t1), np.asarray(sim._rb_dyn.q1)]
+    flat = np.concatenate([np.ascontiguousarray(x, dtype=np.float64).reshape(-1)
+                           for x in parts])
+    return {"newton_per_step": [int(k) for k in
+                                sim.get_logger().series["newton_iterations"]],
+            "positions_sha1": hashlib.sha1(flat.tobytes()).hexdigest()[:16],
+            "positions_sum": float(flat.sum())}
 
 
 # ---------------------------------------------------------------------------
@@ -1558,53 +1581,106 @@ def hvp_bound(groups, n_blocks, p, q, dtype):
     return bound_ms(h_read * H.element_size() + other, 2.0 * h_read, dtype), h_read
 
 
+def csr_direct_rows(ev, data, hess):
+    """The former design's input to kernel A's direct site, as the parent
+    of this design built it: the (R, 9) payload slot pair by slot pair and
+    its CSR over the n^2 block pairs (a searchsorted of n^2 + 1 queries).
+    Phase 16 times it, with the segmented sum and the permute into the
+    block-major layout, against the direct write."""
+    from stark_tpu_torch.ops import segment_reduce as sr
+
+    n = ev.n_blocks
+    pids, payloads = [], []
+    for name, H_e in hess.items():
+        conn = data[name]["conn"]
+        a = conn.shape[1]
+        Hb = H_e.reshape(H_e.shape[0], a, 3, a, 3)
+        for i in range(a):
+            for j in range(a):
+                pids.append(conn[:, i] * n + conn[:, j])
+                payloads.append(Hb[:, i, :, j, :].reshape(-1, 9))
+    return torch.cat(payloads).contiguous(), sr.build_csr(torch.cat(pids), n * n)
+
+
 def direct_checks(sim):
     """Phase 16's DirectLLT part, at the final state of phase 15's DirectLLT
-    cloth: kernel A's direct site against its twin in f32 and f64 (the f64
-    payload is the f32 one cast up), under the sum tolerance; the f32 pass
-    timed with the one-call index_add_, and the library Cholesky (upper, as
-    JAX's cho_factor) and its solve on the assembled matrix."""
+    cloth: kernel A's direct site (the zero fill and one write per block
+    pair) against its twin on the CPU and against the former design (CSR,
+    segmented sum, permute) on the card, both bit for bit, in f32 and f64
+    (the f64 payload is the f32 one cast up); the f32 pass timed with its
+    one-call yardstick (the zero fill and one index_add_ of the 9R scalars
+    into the same matrix, indices built outside the timing), the former
+    design, the whole assembly in either design, and the library Cholesky
+    (upper, as JAX's cho_factor) and its solve on the assembled matrix."""
     from stark_tpu_torch.ops import segment_reduce as sr
     from stark_tpu_torch.solver import project
 
     nm = sim.stark.newton
     ev = nm._ev
+    n, m = ev.n_blocks, 3 * ev.n_blocks
     data, glob = sim._get_data(), sim._get_glob()
     u = sim.stark._connector["get_dofs"]()
     _E, _aux, g, hess = ev.energy_grad_hess(u, data, glob, None, ev.egh_csr(data))
     hess, _n = project.project_all(hess, 1e-10, False, data, jacobi_sweeps=8,
                                    psd_names=nm._psd_names)
-    pay32, csr = ev.direct_rows(data, hess)
+    pay32, ps = ev.direct_rows(data, hess)
+    pay_csr, csr = csr_direct_rows(ev, data, hess)
+    assert torch.equal(pay_csr, pay32)
+    ps_cpu = sr.PairSort(ps.perm.cpu(), ps.key.cpu(), ps.n)
+    R = ps.perm.numel()
+
+    def csr_kernel(pay, c):
+        D4 = sr.segment_reduce(pay, c, "direct_csr")
+        return D4.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(m, m)
+
     results, info = {}, {}
     for dtype in (torch.float64, torch.float32):
         pay = pay32.to(dtype).contiguous()
-        out = sr.segment_reduce(pay, csr, "direct")
-        ref = sr.segment_reduce_plain(pay.cpu(), sr.Csr(*(
-            x.cpu() if isinstance(x, torch.Tensor) else x
-            for x in (csr.perm, csr.offsets, csr.seg, csr.n_seg, csr.n_rows))))
-        absref = sr.segment_reduce_plain(pay.abs(), csr)
+        out = sr.dense_direct(pay, ps)
+        out2 = sr.dense_direct(pay, ps)
+        former = csr_kernel(pay, csr)
+        ref = sr.dense_direct_plain(pay.cpu(), ps_cpu)
         torch.cuda.synchronize()
-        err = check("segment_reduce[direct]", dtype, (out.cpu() - ref).abs(),
-                    sum_tol(absref.cpu(), dtype))
+        same = (torch.equal(out.cpu(), ref), torch.equal(out, former), torch.equal(out, out2))
+        log(f"  segment_reduce[direct]       {str(dtype):<14} bit for bit: twin {same[0]}, "
+            f"former design {same[1]}, relaunch {same[2]}")
+        assert all(same), f"kernel A's direct site ({dtype}) is not bit for bit: {same}"
         if dtype != torch.float32:
             continue
-        perm64 = csr.perm.to(torch.int64)
-        rows = torch.full((csr.n_rows,), csr.n_seg, dtype=torch.int64, device=DEVICE)
-        rows[perm64] = csr.seg
-        lib = torch.zeros((csr.n_seg + 1, 9), dtype=dtype, device=DEVICE)
-        n_kept = int(csr.offsets[-1])
-        bnd = bound_ms(n_kept * 9 * pay.element_size()
-                       + nbytes(csr.perm[:n_kept], csr.offsets, out), n_kept * 9, dtype)
+        sz = pay.element_size()
+        key = ps.key.to(torch.int64)
+        i, j = key // n, key % n
+        rc = torch.arange(3, device=DEVICE)
+        idx = ((3 * i[:, None, None] + rc[None, :, None]) * m + 3 * j[:, None, None]
+               + rc[None, None, :])
+        idx = torch.where((key < n * n)[:, None, None], idx,
+                          torch.full_like(idx, m * m)).reshape(-1)
+        vals = pay[ps.perm.to(torch.int64)].reshape(-1).contiguous()
+
+        def lib():
+            return torch.zeros(m * m + 1, dtype=dtype, device=DEVICE).index_add_(0, idx, vals)
+
+        check("segment_reduce[direct] yardstick", dtype,
+              (lib()[:m * m].view(m, m) - out).abs(),
+              sum_tol(sr.dense_direct(pay.abs(), ps), dtype))
+        bnd = bound_ms(m * m * sz + R * 9 * sz + nbytes(ps.perm, ps.key), R * 9, dtype)
+        hess32 = {k: v.to(dtype) for k, v in hess.items()}
         results["segment_reduce[direct]"] = dict(
-            max_abs_err=err, ms=graph_ms(lambda: sr.segment_reduce(pay, csr, "direct")),
-            plain_ms=graph_ms(lambda: sr.segment_reduce_plain(pay, csr)),
-            library_ms=graph_ms(lambda: lib.index_add_(0, rows, pay)),
-            bound_ms=bnd[0], bound_by=bnd[1],
-            shape=f"payload {tuple(pay.shape)} -> ({csr.n_seg}, 9), "
-                  f"{ev.n_blocks} blocks")
-        n = ev.n_blocks
+            max_abs_err=0.0, ms=graph_ms(lambda: sr.dense_direct(pay, ps)),
+            plain_ms=graph_ms(lambda: sr.dense_direct_plain(pay, ps)),
+            library_ms=graph_ms(lib), bound_ms=bnd[0], bound_by=bnd[1],
+            former_ms=graph_ms(lambda: csr_kernel(pay, csr)),
+            fill_ms=graph_ms(lambda: torch.zeros((m, m), dtype=dtype, device=DEVICE)),
+            assembly_ms=graph_ms(lambda: ev.assemble_dense_direct(data, hess32)),
+            former_assembly_ms=graph_ms(
+                lambda: csr_kernel(*csr_direct_rows(ev, data, hess32))),
+            shape=f"payload ({R}, 9), {int((ps.key < n * n).sum())} kept -> ({m}, {m}), "
+                  f"{n} blocks")
+        info["direct_times"] = {k: v for k, v in results["segment_reduce[direct]"].items()
+                                if k.endswith("ms")}
+        log("  segment_reduce[direct] times: " + json.dumps(info["direct_times"]))
         Hd = ev.assemble_dense_direct(data, hess)
-        Hd = Hd + 1e-30 * torch.eye(3 * n, dtype=dtype, device=DEVICE)
+        Hd = Hd + 1e-30 * torch.eye(m, dtype=dtype, device=DEVICE)
         U, fail = torch.linalg.cholesky_ex(Hd, upper=True)
         b = -g.reshape(-1, 1)
         info["cholesky_ms"] = events_ms(lambda: torch.linalg.cholesky_ex(Hd, upper=True),
@@ -1612,8 +1688,8 @@ def direct_checks(sim):
         info["cholesky_solve_ms"] = events_ms(
             lambda: torch.cholesky_solve(b, U, upper=True), iters=10)
         info["cholesky_info"] = int(fail)
-        info["dense_n"] = 3 * n
-        log(f"  cholesky_ex (upper, {3 * n}^2 f32) {info['cholesky_ms']:.4f} ms, "
+        info["dense_n"] = m
+        log(f"  cholesky_ex (upper, {m}^2 f32) {info['cholesky_ms']:.4f} ms, "
             f"cholesky_solve {info['cholesky_solve_ms']:.4f} ms, info={int(fail)}")
     return results, info
 
@@ -1654,6 +1730,8 @@ def staged_configurations(size):
         if solver == "DirectLLT":
             assert launches.get("segment_reduce[direct]", 0) > 0, \
                 "DirectLLT's dense scatter never launched"
+            run["digest"] = trajectory_digest(sim)
+            log(f"    DirectLLT trajectory: {json.dumps(run['digest'])}")
             launches_direct, sim_direct = launches, sim
         else:
             assert launches.get("hvp_bucket[staged]", 0) > 0, f"{label}: B never launched"
@@ -1686,7 +1764,8 @@ def rigid_global_point():
         f"force {f:.4f} of {force:.4f} (the spring is still settling at 0.1 s)")
     assert np.isfinite(C) and abs(C) < constraint.get_tolerance_in_m()
     assert launches.get("segment_reduce[direct]", 0) > 0
-    run.update(violation_m=C, force=f, applied=force)
+    run.update(violation_m=C, force=f, applied=force, digest=trajectory_digest(sim))
+    log(f"    DirectLLT trajectory: {json.dumps(run['digest'])}")
     return run
 
 
@@ -1709,7 +1788,8 @@ def rigid_hinge():
     assert_launched(launches, ("segment_reduce[direct]", "egh_joints[points]",
                                "egh_joints[directions]"), "the DirectLLT hinge")
     run.update(point_violation_m=C, force=f, direction_violation_deg=A, torque=t,
-               applied=rb_scenes.PERTURBATION)
+               applied=rb_scenes.PERTURBATION, digest=trajectory_digest(sim))
+    log(f"    DirectLLT trajectory: {json.dumps(run['digest'])}")
     return run
 
 
@@ -3364,6 +3444,20 @@ PHASE25_KERNELS = [
 ]
 
 
+def same_timer(kernel, library):
+    """(kernel ms, library ms, "graph" or "events"): both timed in a CUDA
+    graph, or both from host launches with CUDA events where the library
+    call cannot be captured."""
+    try:
+        lib_ms = graph_ms(library)
+    except RuntimeError as exc:
+        log(f"  the library call cannot be captured ({str(exc).splitlines()[0]}): "
+            f"both timed from host launches")
+        torch.cuda.synchronize()
+        return events_ms(kernel), events_ms(library), "events"
+    return graph_ms(kernel), lib_ms, "graph"
+
+
 def hold_exact(name, got, want):
     """Integer tables bit for bit, overflow signals included."""
     bad = [i for i, (a, b) in enumerate(zip(got, want))
@@ -3431,20 +3525,31 @@ def linsolve_checks(sim) -> dict:
     entry = got[0]
     groups = [(conn, H)]
     q = htb.hvp_table(p, groups, entry)
+    q2 = htb.hvp_table(p, groups, entry)
     ref = htb.hvp_table_plain(p, groups, entry)
     absref = htb.hvp_table_plain(p.abs(), [(conn, H.abs())], entry)
     torch.cuda.synchronize()
     err = check("hvp_table", dtype, (q - ref).abs(), sum_tol(absref, dtype))
+    assert torch.equal(q, q2), "hvp_table: two launches differ"
+    p64, g64 = p.double(), [(conn, H.double())]
+    q64 = htb.hvp_table(p64, g64, entry)
+    torch.cuda.synchronize()
+    check("hvp_table", torch.float64, (q64 - htb.hvp_table_plain(p64, g64, entry)).abs(),
+          sum_tol(htb.hvp_table_plain(p64.abs(), [(conn, H.double().abs())], entry),
+                  torch.float64))
+    assert torch.equal(q64, htb.hvp_table(p64, g64, entry)), "hvp_table: f64 launches differ"
     kept = int((entry < R).sum())
     nb = kept * 9 * b * sz + 4 * (n * K + kept * b) + 2 * p.numel() * sz
     bnd = bound_ms(nb, 2.0 * kept * 9 * b, dtype)
     bsr = bsr_of(groups, n)
     pv = p.reshape(-1, 1)
+    ms, lib_ms, timed = same_timer(lambda: htb.hvp_table(p, groups, entry),
+                                   lambda: torch.sparse.mm(bsr, pv))
     out["hvp_table"] = dict(
-        max_abs_err=err, ms=graph_ms(lambda: htb.hvp_table(p, groups, entry)),
+        max_abs_err=err, ms=ms,
         plain_ms=graph_ms(lambda: htb.hvp_table_plain(p, groups, entry)),
-        library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)), bound_ms=bnd[0],
-        bound_by=bnd[1], shape=f"H ({E}, {3 * b}, {3 * b}), {kept} table entries, p ({n}, 3)")
+        library_ms=lib_ms, timed=timed, bound_ms=bnd[0], bound_by=bnd[1],
+        shape=f"H ({E}, {3 * b}, {3 * b}), {kept} table entries, p ({n}, 3)")
     # ---- AC, both layouts; the yardstick: index_add_ of the pair values
     vals = dr.pair_values(H)
     pid_l = pid.to(torch.int64)

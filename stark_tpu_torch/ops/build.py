@@ -83,6 +83,7 @@ _D = ctypes.c_double
 # (argtypes) of every exported entry point; each exists as _f32 and _f64
 _SIGNATURES = {
     "stk_segment_reduce": [_P, _I, _P, _P, _I, _P, _P],
+    "stk_direct_dense": [_P, _P, _P, _I, _I, _P, _P],
     "stk_hvp_bucket": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
     "stk_pd_project": [_P, _I, _I, _P, _I, _I, _D, _I, _P, _P, _P, _P],
     "stk_pd_project_z": [_P, _I, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P],

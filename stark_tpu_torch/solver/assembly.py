@@ -42,8 +42,9 @@ its own CSR (`staged_groups`, built once per Newton iteration from the
 tables alone) and one launch of kernel B (site hvp_bucket[staged]) or A
 (diag) per group, the partial sums added in ascending arity as JAX adds
 them. No row is padded: an inertia row stays 3x3 where the fused bucket
-makes it 12x12. DirectLLT's dense (3n)^2 Hessian is summed per block pair by
-kernel A (site direct) in the order of JAX's scatter-adds.
+makes it 12x12. DirectLLT's dense (3n)^2 Hessian is written per block pair by
+kernel A's direct site, straight into JAX's block-major layout, in the
+order of JAX's scatter-adds.
 """
 from __future__ import annotations
 
@@ -60,7 +61,7 @@ from ..ops.block3 import block3_apply, block3_inverse
 from ..ops.compact import compact
 from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
 from ..ops.hvp_table import hvp_table as _hvp_table_kernel
-from ..ops.segment_reduce import Csr, build_csr, segment_reduce
+from ..ops.segment_reduce import Csr, build_csr, dense_direct, segment_reduce, sort_pairs
 from .potential import PotentialFamily
 from .program import EagerControl
 
@@ -383,31 +384,33 @@ class Evaluators:
         return self.diag_blocks_ctx(self.hvp_context(self.staged_groups(data), hess))
 
     def direct_rows(self, data, hess):
-        """DirectLLT's scatter as kernel A's input: the (R, 9) payload of
-        every element's 3x3 block pairs, in JAX's scatter order (families in
-        `hess` order, then the block slots i, j, then the elements; inactive
-        rows included, as in JAX), and its CSR over the n^2 block pairs."""
+        """DirectLLT's scatter as kernel A's direct input: the (R, 9) payload
+        of every element's 3x3 block pairs, in JAX's scatter order (families
+        in `hess` order, then the block slots i, j, then the elements;
+        inactive rows included, as in JAX), and the stable sort of their
+        pair keys i * n + j. A pair with a block id outside 0..n-1 (the
+        dummy id n) is keyed n^2 and dropped, as JAX's scatter drops an
+        index out of bounds on either axis."""
         n = self.n_blocks
         pids, payloads = [], []
         for name, H_e in hess.items():
-            conn = data[name]["conn"]
-            a = conn.shape[1]
-            Hb = H_e.reshape(H_e.shape[0], a, 3, a, 3)
-            for i in range(a):
-                for j in range(a):
-                    pids.append(conn[:, i] * n + conn[:, j])
-                    payloads.append(Hb[:, i, :, j, :].reshape(-1, 9))
-        return torch.cat(payloads).contiguous(), build_csr(torch.cat(pids), n * n)
+            conn = data[name]["conn"].to(torch.int64)
+            real = (conn >= 0) & (conn < n)
+            E, a = conn.shape
+            # (i, j, e) order: slot i, then slot j, then the elements
+            key = torch.where(real[:, :, None] & real[:, None, :],
+                              conn[:, :, None] * n + conn[:, None, :], n * n)
+            pids.append(key.permute(1, 2, 0).reshape(-1))
+            payloads.append(H_e.reshape(E, a, 3, a, 3).permute(1, 3, 0, 2, 4).reshape(-1, 9))
+        return torch.cat(payloads).contiguous(), sort_pairs(torch.cat(pids), n)
 
     def assemble_dense_direct(self, data, hess):
         """The dense (3n, 3n) global Hessian in block-major layout (row
         3*i + c is component c of block i) of DirectLLT (stark_tpu
-        newton.py:193-204), summed per block pair by kernel A (site direct):
-        each pair's sum adds the same terms in the same order as JAX's
-        sequence of scatter-adds."""
-        n = self.n_blocks
-        D4 = segment_reduce(*self.direct_rows(data, hess), "direct")
-        return D4.reshape(n, n, 3, 3).permute(0, 2, 1, 3).reshape(3 * n, 3 * n)
+        newton.py:193-204), written per block pair by kernel A's direct
+        site: each pair's sum adds the same terms in the same order as
+        JAX's sequence of scatter-adds."""
+        return dense_direct(*self.direct_rows(data, hess))
 
     def scatter_rows(self, conn_cat):
         """Flat block-row vector of the single-bucket layout."""

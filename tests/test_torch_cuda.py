@@ -66,6 +66,27 @@ def test_segment_reduce_matches_cpu_twin(dev, dtype, width):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_direct_matches_cpu_twin(dev, dtype):
+    """Kernel A's direct site (DirectLLT's dense matrix) on seeded pair
+    keys, bit for bit against its twin: long runs on a few pairs, dropped
+    keys, an empty block row, one block, no rows."""
+    rng = np.random.default_rng(13)
+    for n, R in ((1, 5), (37, 0), (64, 4000), (300, 20000)):
+        pids = rng.integers(-2, n * n + 20, R)
+        pids[: R // 4] = rng.integers(0, min(3, n * n), R // 4)
+        pids[pids // max(n, 1) == 5] = n * n
+        pay = torch.as_tensor(rng.normal(size=(R, 9)) * 10.0 ** rng.integers(-5, 5, (R, 1)),
+                              dtype=dtype)
+        ps = sr.sort_pairs(torch.as_tensor(pids), n)
+        ref = sr.dense_direct_plain(pay, ps)
+        before = build.launches["segment_reduce[direct]"]
+        out = sr.dense_direct(pay.to(dev), sr.PairSort(ps.perm.to(dev), ps.key.to(dev), n))
+        torch.cuda.synchronize()
+        assert build.launches["segment_reduce[direct]"] == before + 1
+        assert torch.equal(out.cpu(), ref), (n, R)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b", [1, 3, 4, 5])
 def test_hvp_bucket_matches_twin(dev, dtype, b):
     rng = np.random.default_rng(b)
@@ -963,8 +984,9 @@ def _staged_cloth(device, mode="ProjectedNewton", solver="BDPCG", n=6, squeeze=1
 def test_staged_hvp_and_direct_assembly_match_twins(dev, dtype):
     """Kernel B at its staged site (one launch per arity group) and kernel
     A's direct site (DirectLLT's dense Hessian) on a 6x6 cloth's element
-    Hessians at a random state, against the twins on the CPU: within the
-    sum tolerance 64 eps * sum|terms|."""
+    Hessians at a random state, against the twins on the CPU: B within the
+    sum tolerance 64 eps * sum|terms|, A's direct site bit for bit (it sums
+    each block pair in the twin's order)."""
     sim, _h = _staged_cloth("cpu", solver="DirectLLT")
     sim.stark._initialize()
     nm = sim.stark.newton
@@ -1000,10 +1022,9 @@ def test_staged_hvp_and_direct_assembly_match_twins(dev, dtype):
     q_c, D_c, _l, _ld, _n = on("cpu")
     groups = ev.staged_groups(data)
     aq = ev.hvp_ctx(p.abs(), ev.hvp_context(groups, absh))
-    aD = ev.assemble_dense_direct(data, absh)
     assert launched == n_groups >= 3 and launched_d == 1
     assert torch.all((q_g - q_c).abs() <= _tol(aq, dtype, 64.0))
-    assert torch.all((D_g - D_c).abs() <= _tol(aD, dtype, 64.0))
+    assert torch.equal(D_g, D_c)
 
 
 @pytest.mark.parametrize("mode,solver", [("ProjectedNewton", "DirectLLT"),
@@ -1388,6 +1409,22 @@ def _bucket(dev, dtype, n=300, E=900, b=5, seed=0):
     return torch.as_tensor(conn, dtype=torch.int32), H
 
 
+def _skewed_bucket(dtype, n, K, b=5, seed=3):
+    """A bucket whose gather table is skewed: block 7 fills its row of K
+    entries, the other rows hold 0-3 entries, 30 of them none."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 4, n)
+    counts[rng.choice(n, 30, replace=False)] = 0
+    counts[7] = K
+    ids = rng.permutation(np.repeat(np.arange(n), counts))
+    E = -(-2 * len(ids) // b)
+    flat = np.full(E * b, n)
+    flat[rng.choice(E * b, len(ids), replace=False)] = ids
+    A = rng.normal(size=(E, 3 * b, 3 * b))
+    return (torch.as_tensor(flat.reshape(E, b), dtype=torch.int32),
+            torch.as_tensor(A @ A.transpose(0, 2, 1), dtype=dtype))
+
+
 @pytest.mark.parametrize("K", [4, 32])
 def test_gather_tables_match_twin(dev, K):
     """Kernel AA's three table builds (and kernel E's compactions in them)
@@ -1426,22 +1463,27 @@ def test_gather_tables_match_twin(dev, K):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_hvp_table_and_dense_runs_match_twin(dev, dtype):
-    """Kernel AB against its twin within 64 eps sum|terms|; kernel AC's two
+    """Kernel AB against its twin within 64 eps sum|terms|, on the shared
+    bucket and on a skewed table (one row full, most of 0-3 entries, some
+    all pads), and the same bits from two launches; kernel AC's two
     layouts against theirs within 64 eps sum|terms|: the segmented scan in
     the input dtype over each run's terms, the f64 cumsum (JAX's
     direct_solve) over each run's terms in the dtype and over the prefix it
     differences in float64."""
     from stark_tpu_torch.ops import dense_runs as dr, hvp_table as htb, tables as tb
 
-    conn, H = _bucket(dev, dtype)
     n = 300
     p = torch.as_tensor(np.random.default_rng(1).normal(size=(n, 3)), dtype=dtype)
-    entry, _m = tb.gather_table_plain(conn.reshape(-1).long(), n, 64)
-    q = htb.hvp_table(p.to(dev), [(conn.to(dev), H.to(dev))], entry.to(dev))
-    ref = htb.hvp_table_plain(p, [(conn, H)], entry)
-    absref = htb.hvp_table_plain(p.abs(), [(conn, H.abs())], entry)
-    torch.cuda.synchronize()
-    assert torch.all((q.cpu() - ref).abs() <= _tol(absref, dtype, 64.0))
+    for cn, Hn in (_bucket(dev, dtype), _skewed_bucket(dtype, n, 64)):
+        entry, _m = tb.gather_table_plain(cn.reshape(-1).long(), n, 64)
+        args = (p.to(dev), [(cn.to(dev), Hn.to(dev))], entry.to(dev))
+        q, q2 = htb.hvp_table(*args), htb.hvp_table(*args)
+        ref = htb.hvp_table_plain(p, [(cn, Hn)], entry)
+        absref = htb.hvp_table_plain(p.abs(), [(cn, Hn.abs())], entry)
+        torch.cuda.synchronize()
+        assert torch.all((q.cpu() - ref).abs() <= _tol(absref, dtype, 64.0))
+        assert torch.equal(q, q2)
+    conn, H = _bucket(dev, dtype)
     dtab = tb.direct_tables_plain(conn, n, 1 << 15)
     dtab_d = tb.DirectTables(*(t.to(dev) for t in dtab))
     for layout in (dr.PERM, dr.DIRECT):
