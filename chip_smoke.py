@@ -10,7 +10,9 @@ Phases (every failure propagates; nothing is caught):
   3. hold kernels A-D against their plain PyTorch twins on the card, in f32
      and f64, at the shapes of the 64x64 hanging cloth (the dense-assembly
      site of kernel A at the 32x32 cloth's, where that branch runs), and time
-     kernel, twin and the one-call PyTorch yardstick where there is one;
+     kernel, twin and the one-call PyTorch yardstick where there is one
+     (kernel B's `hvp_site`: its row lengths printed, the same bits from two
+     launches, kernel and torch.sparse.mm both timed in a CUDA graph);
   4. run the 64x64 hanging cloth (Cotton_Fabric, 0.4 m, two pinned corners)
      in float32 through Simulation.run_one_time_step and check it: finite,
      sagging, pins held, and every kernel of the path launched;
@@ -36,7 +38,9 @@ Phases (every failure propagates; nothing is caught):
      their twins on the CPU in f32 and f64 at the final state and time them
      (in a child process, `chip_smoke.py --friction OUT`, started with
      phase 9's);
- 11. print the kernels' JSON line, the card line, and the result line;
+ 11. print the Newton iterations of the scenes whose CG products run
+     kernel B (phases 7, 10, 12, 14, 15), the kernels' JSON line, the card
+     line, and the result line;
  12. run bench.py's 64x64 scale point of spinning_box_cloth (float32, one
      warm-up step, then 0.15 simulated seconds through Simulation.run),
      where the edge-edge block (12,416^2 pairs) takes the hash grid: kernels
@@ -54,7 +58,8 @@ Phases (every failure propagates; nothing is caught):
      `chip_smoke.py --scale64 OUT`, started with phase 9's); and, at the same
      state, kernel F's oracle ball pairs from the card's torch glue against
      those of the CPU glue, the card's list (the port's pad) containing the
-     CPU's under JAX's pad;
+     CPU's under JAX's pad; kernel B at the state's solver product (the
+     static bucket and the live pool, `hvp_site`);
  14. run the 32x32 spinning box with friction mu = 1 in float32 through the
      staged solver (STARK_TPU_TORCH_NO_FUSED=1) for 0.2 simulated seconds:
      the contact tables refreshed before every energy evaluation (K16:
@@ -71,7 +76,8 @@ Phases (every failure propagates; nothing is caught):
      tests/test_rb_constraints.py's global_point scene and a hinge (kernels
      T and U) on DirectLLT at 2 ms for 50 steps; the three DirectLLT runs
      print their Newton counts and a hash of their final positions;
- 16. hold kernel B at its staged site and the K16 lists (exactly) against
+ 16. hold kernel B at its staged site (one launch over the arity groups,
+     `hvp_site`) and the K16 lists (exactly) against
      their twins in f32 and f64 at phase 14's final state, and the whole
      contact refresh against the engine's twin path; kernel A's direct site
      on phase 15's DirectLLT input, bit for bit against its twin and the
@@ -161,10 +167,11 @@ Phases (every failure propagates; nothing is caught):
      launches of AA-AC counted over it; AA's tables bit for bit and AB, AC
      within the sum rule against their twins there (AB in f32 and f64, two
      launches the same bits; AB and its sparse.mm yardstick timed alike),
-     each timed; kernel Z
+     each timed; kernel B at the fused solve's product (`hvp_site`); kernel Z
      (JAX's exact-eigh branch: jacobi_sweeps = 0 and every d <= 3, here the
      box's fix at d = 3, which phase 7 ran through Z; and a seeded d = 96
-     stack, its wide layout) against its twin; and phase 19's soft boxes at
+     stack in f32 and f64, its shared wide layout, with the twin's sweeps
+     per matrix) against its twin; and phase 19's soft boxes at
      jacobi_sweeps = 0 for a short window through the graph: finite, the
      last solve successful, one host read per solve, every projection on Z.
 
@@ -176,7 +183,9 @@ Exits non-zero without a CUDA device. Long logs (ptxas report,
 summary.json) go to chiprun_out/chip_smoke/. Where a Newton iteration's time
 goes is measured on demand by `python3 -m stark_tpu_torch.tools.profile_stages`;
 `python3 chip_smoke.py --witness` (not part of the smoke) measures phase 19's
-contact rows and reruns phases 10, 18 and 19 under variants (witness_run).
+contact rows and reruns phases 10, 18 and 19 under variants (witness_run);
+`--witness-b` reruns phase 7 with kernel B, from a start moved one ulp and
+with B's twin (witness_b_run).
 """
 from __future__ import annotations
 
@@ -318,7 +327,7 @@ def sum_tol(absref, dtype, k=64.0):
 
 
 def kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32):
-    from stark_tpu_torch.ops import block3, hvp_bucket as hb, pd_project as pd
+    from stark_tpu_torch.ops import block3, pd_project as pd
     from stark_tpu_torch.ops import segment_reduce as sr
 
     rng = np.random.default_rng(7)
@@ -328,6 +337,12 @@ def kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32):
         return torch.as_tensor(rng.normal(size=(csr.n_rows, width)),
                                dtype=dtype, device=DEVICE)
 
+    # ---- B over the static bucket (no pool: the cloth has no contact) ----
+    p32 = torch.as_tensor(np.random.default_rng(3).normal(size=(ev64.n_blocks, 3)),
+                          dtype=torch.float32, device=DEVICE)
+    results["hvp_bucket"] = hvp_site("64x64 cloth bucket", [(topo64.conn_cat32, H64,
+                                                             topo64.csr_cat)],
+                                     ev64.n_blocks, p32)
     for dtype in (torch.float64, torch.float32):
         main = dtype == torch.float32   # the main path runs float32
         log(f"-- {dtype}")
@@ -370,38 +385,6 @@ def kernel_checks(ev64, topo64, hess64, H64, ev32, topo32, H32):
                     library_ms=graph_ms(lambda: lib.index_add_(0, rows, pay)),
                     bound_ms=bnd[0], bound_by=bnd[1],
                     shape=f"payload {tuple(pay.shape)} -> ({csr.n_seg}, 9)")
-
-        # ---- B ----
-        Hd = H64.to(dtype).contiguous()
-        p = torch.as_tensor(rng.normal(size=(ev64.n_blocks, 3)), dtype=dtype,
-                            device=DEVICE)
-        q = hb.hvp_bucket(p, topo64.conn_cat32, Hd, topo64.csr_cat)
-        q_ref = hb.hvp_bucket_plain(p, topo64.conn_cat32, Hd, topo64.csr_cat)
-        q_abs = hb.hvp_bucket_plain(p.abs(), topo64.conn_cat32, Hd.abs(),
-                                    topo64.csr_cat)
-        torch.cuda.synchronize()
-        err = check("hvp_bucket", dtype, (q - q_ref).abs(), sum_tol(q_abs, dtype))
-        if main:
-            bnd, h_read = hvp_bound([(topo64.conn_cat32, Hd, topo64.csr_cat)],
-                                    ev64.n_blocks, p, q, dtype)
-            # the one-call yardstick: torch.sparse.mm with the same global
-            # matrix as a BSR tensor of 3x3 blocks, built outside the timing
-            bsr = bsr_of([(topo64.conn_cat32, Hd)], ev64.n_blocks)
-            pv = p.reshape(-1, 1)
-            lib_q = torch.sparse.mm(bsr, pv).reshape(-1, 3)
-            torch.cuda.synchronize()
-            check("torch.sparse.mm (BSR) yardstick", dtype, (lib_q - q_ref).abs(),
-                  sum_tol(q_abs, dtype))
-            results["hvp_bucket"] = dict(
-                max_abs_err=err,
-                ms=graph_ms(lambda: hb.hvp_bucket(
-                    p, topo64.conn_cat32, Hd, topo64.csr_cat)),
-                plain_ms=graph_ms(lambda: hb.hvp_bucket_plain(
-                    p, topo64.conn_cat32, Hd, topo64.csr_cat)),
-                library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)),
-                bound_ms=bnd[0], bound_by=bnd[1],
-                shape=f"H {tuple(Hd.shape)} ({h_read} values read), "
-                      f"p {tuple(p.shape)}")
 
         # ---- C: the triangle-strain stack (d=9) and a random indefinite
         # d=15 stack; compare rebuilt matrices (eigenvector signs are free)
@@ -1452,6 +1435,16 @@ def scale64_checks(sim):
     log(f"  ee_dd candidate search: grid (K, L, G, E) {info['ee_dd_grid_ms']:.4f} ms, "
         f"dense (F, G, E) {info['ee_dd_dense_ms']:.4f} ms, of which F "
         f"{info['ee_dd_dense_ball_ms']:.4f} ms")
+    # kernel B at the fused solve's product of this state: the largest
+    # contact set of the smoke, so the box's block row is at its longest
+    from stark_tpu_torch.tools import profile_linsolve as pl
+
+    st = pl.linear_system(sim)
+    solver = [(st.topo.conn_cat32, st.H_stat, st.topo.csr_cat)]
+    if st.pool is not None:
+        solver.append((st.pool.conn32, st.pool.H, st.pool.csr))
+    info["hvp_bucket"] = hvp_site("phase 12 solver product", solver, st.ev.n_blocks,
+                                  (-st.grad).contiguous())
     return results, info
 
 
@@ -1568,17 +1561,77 @@ def bsr_of(groups, n: int):
 def hvp_bound(groups, n_blocks, p, q, dtype):
     """Kernel B's bound over [(conn, H, csr)]: for each kept CSR entry (e, a)
     the 3 rows of H_e at a and in them the 3 columns of each non-dummy
-    block of conn_e (9 * n_e values per entry), conn, p, the CSR and q once
-    per launch; 2 flops per value read."""
-    h_read, other = 0, 0
+    block of conn_e (9 * n_e values per entry), and each group's conn and
+    CSR; p read and q written once, as the one launch does; 2 flops per
+    value read."""
+    h_read, other = 0, nbytes(p, q)
     for conn, H, csr in groups:
         real = (conn < n_blocks).sum(1)
         perm_k = csr.perm[:int(csr.offsets[-1])]
         e_of = perm_k.to(torch.int64) // conn.shape[1]
         n_read = 9 * int(real[e_of].sum())
         h_read += n_read
-        other += nbytes(conn, p, perm_k, csr.offsets, q)
+        other += nbytes(conn, perm_k, csr.offsets)
     return bound_ms(h_read * H.element_size() + other, 2.0 * h_read, dtype), h_read
+
+
+def cpu_csr(csr):
+    from stark_tpu_torch.ops import segment_reduce as sr
+
+    return sr.Csr(csr.perm.cpu(), csr.offsets.cpu(), csr.seg.cpu(), csr.n_seg, csr.n_rows)
+
+
+def hvp_rows(groups) -> dict:
+    """Kernel B's block rows over groups [(conn, H, csr)]: entries per row
+    summed over the groups (max, p99, mean); a warp walks a row 32 entries
+    at a time."""
+    lens = sum((csr.offsets[1:] - csr.offsets[:-1]).to(torch.int64) for _c, _H, csr in groups)
+    lf = lens.double()
+    return {"rows": int(lens.numel()), "entries": int(lens.sum()), "max": int(lens.max()),
+            "p99": float(torch.quantile(lf, 0.99)), "mean": float(lf.mean())}
+
+
+def hvp_site(label, groups, n_blocks, p32, site=None) -> dict:
+    """Kernel B at one site: one launch over `groups` [(conn, H, csr)]
+    against its twin on the CPU (each group's product, added in order) in
+    float64 and float32 within 64 eps sum|terms|, and the same bits from
+    two launches; the float32 launch timed in a CUDA graph, beside its twin
+    on the card and torch.sparse.mm on the same global matrix as BSR, timed
+    alike (`same_timer`)."""
+    from stark_tpu_torch.ops import hvp_bucket as hb
+
+    name = "hvp_bucket" if site is None else f"hvp_bucket[{site}]"
+    rows = hvp_rows(groups)
+    log(f"  {name} at the {label}: {len(groups)} groups, row lengths {json.dumps(rows)}")
+    for dtype in (torch.float64, torch.float32):
+        g = [(c, H.to(dtype).contiguous(), csr) for c, H, csr in groups]
+        p = p32.to(dtype)
+        q = hb.hvp_groups(p, g, site)
+        q2 = hb.hvp_groups(p, g, site)
+        gc = [(c.cpu(), H.cpu(), cpu_csr(csr)) for c, H, csr in g]
+        q_ref = hb.hvp_groups_plain(p.cpu(), gc)
+        q_abs = hb.hvp_groups_plain(p.cpu().abs(), [(c, H.abs(), s) for c, H, s in gc])
+        torch.cuda.synchronize()
+        err = check(f"{name} ({label})", dtype, (q.cpu() - q_ref).abs(), sum_tol(q_abs, dtype))
+        assert torch.equal(q, q2), f"{name} ({label}, {dtype}): two launches differ"
+    bnd, h_read = hvp_bound(g, n_blocks, p, q, dtype)
+    # the one-call yardstick: torch.sparse.mm with the same global matrix as
+    # a BSR tensor of 3x3 blocks, built outside the timing
+    bsr = bsr_of([(c, H) for c, H, _s in g], n_blocks)
+    pv = p.reshape(-1, 1)
+    lib_q = torch.sparse.mm(bsr, pv).reshape(-1, 3)
+    torch.cuda.synchronize()
+    check("torch.sparse.mm (BSR) yardstick", dtype, (lib_q.cpu() - q_ref).abs(),
+          sum_tol(q_abs, dtype))
+    ms, lib_ms, timed = same_timer(lambda: hb.hvp_groups(p, g, site),
+                                   lambda: torch.sparse.mm(bsr, pv))
+    out = dict(max_abs_err=err, ms=ms,
+               plain_ms=graph_ms(lambda: hb.hvp_groups_plain(p, g)),
+               library_ms=lib_ms, timed=timed, bound_ms=bnd[0], bound_by=bnd[1], rows=rows,
+               shape=f"{len(g)} groups, H rows {[int(c.shape[0]) for c, _H, _s in g]}, "
+                     f"{h_read} values read")
+    log(f"  {name} ({label}): " + json.dumps(out))
+    return out
 
 
 def csr_direct_rows(ev, data, hess):
@@ -1839,7 +1892,6 @@ def staged_kernel_checks(sim):
     included) against the twins, under the sum tolerance; the f32 passes
     timed, B beside the one-call BSR torch.sparse.mm."""
     from stark_tpu_torch.ops import friction_pairs as fp, hvp_bucket as hb
-    from stark_tpu_torch.ops import segment_reduce as sr
     from stark_tpu_torch.solver import project
 
     eng, nm, u, Vs32, Vr32 = contact_state(sim)
@@ -1966,41 +2018,14 @@ def staged_kernel_checks(sim):
                           device=DEVICE)
     info["staged_groups"] = {a: [list(g.names), int(g.conn32.shape[0])]
                              for a, g in groups.items()}
-    for dtype in (torch.float64, torch.float32):
-        hh = {k: v.to(dtype) for k, v in hess.items()}
-        p = p32.to(dtype)
-        ctx = ev.hvp_context(groups, hh)
-        q = ev.hvp_ctx(p, ctx)
-        ctx_c = {a: type(g)(g.names, g.conn32.cpu(), sr.Csr(*(
-            x.cpu() if isinstance(x, torch.Tensor) else x
-            for x in (g.csr.perm, g.csr.offsets, g.csr.seg, g.csr.n_seg, g.csr.n_rows))),
-            g.H.cpu()) for a, g in ctx.items()}
-        q_ref = sum(hb.hvp_bucket_plain(p.cpu(), g.conn32, g.H, g.csr)
-                    for g in ctx_c.values())
-        q_abs = sum(hb.hvp_bucket_plain(p.cpu().abs(), g.conn32, g.H.abs(), g.csr)
-                    for g in ctx_c.values())
-        torch.cuda.synchronize()
-        err = check(f"hvp_bucket[staged] ({len(ctx)} groups)", dtype,
-                    (q.cpu() - q_ref).abs(), sum_tol(q_abs, dtype))
-        if dtype != torch.float32:
-            continue
-        trip = [(g.conn32, g.H, g.csr) for g in ctx.values()]
-        bnd, h_read = hvp_bound(trip, ev.n_blocks, p, q, dtype)
-        bsr = bsr_of([(g.conn32, g.H) for g in ctx.values()], ev.n_blocks)
-        pv = p.reshape(-1, 1)
-        lib_q = torch.sparse.mm(bsr, pv).reshape(-1, 3)
-        torch.cuda.synchronize()
-        check("torch.sparse.mm (BSR) yardstick", dtype, (lib_q.cpu() - q_ref).abs(),
-              sum_tol(q_abs, dtype))
-        results["hvp_bucket[staged]"] = dict(
-            max_abs_err=err,
-            ms=graph_ms(lambda: [hb.hvp_bucket(p, c, H, csr, "staged") for c, H, csr in trip]),
-            plain_ms=graph_ms(lambda: [hb.hvp_bucket_plain(p, c, H, csr)
-                                       for c, H, csr in trip]),
-            library_ms=events_ms(lambda: torch.sparse.mm(bsr, pv)),
-            bound_ms=bnd[0], bound_by=bnd[1],
-            shape=f"{len(trip)} arity groups, rows "
-                  f"{[int(c.shape[0]) for c, _H, _c in trip]}, {h_read} values read")
+    # the solver's own call, then kernel B's checks over the same groups
+    ctx = ev.hvp_context(groups, hess)
+    trip = [(ctx[a].conn32, ctx[a].H, ctx[a].csr) for a in sorted(ctx)]
+    q = ev.hvp_ctx(p32, ctx)
+    assert torch.equal(q, hb.hvp_groups(p32, trip, "staged")), \
+        "hvp_ctx and one launch over its groups differ"
+    results["hvp_bucket[staged]"] = hvp_site("phase 16 staged groups", trip, ev.n_blocks,
+                                             p32, "staged")
     return results, info
 
 
@@ -2679,6 +2704,7 @@ def witness_scene(make, seconds: float, label: str, twins=(), sweeps=None,
     lg = sim.get_logger()
     newton = [int(v) for v in lg.series["newton_iterations"]]
     r = {"label": label, "newton_per_step": newton, "newton": sum(newton),
+         "cg_per_step": [int(v) for v in lg.series["cg_iterations"]],
          "solver_codes": [int(c) for c in lg.series["solver_code"]],
          "cg_per_newton": int(lg.get_stats("cg_iterations").total) / max(sum(newton), 1),
          "ms_per_newton": 1e3 * wall / max(sum(newton), 1), "wall_s": wall,
@@ -2728,6 +2754,40 @@ def witness_run() -> int:
         witness_scene(friction_box, FRICTION_SECONDS, "kernel Q, start moved one ulp",
                       moved=True)[0]]
     with open(os.path.join(WITNESS_DIR, "witness.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    log(json.dumps({"ok": True}))
+    return 0
+
+
+def witness_b_run() -> int:
+    """`chip_smoke.py --witness-b`: phase 7's scene (the N_SBC spinning box,
+    float32, SBC_SECONDS) three times: with kernel B, with kernel B from a
+    start moved by one float32 ulp, and with B's twin on the card
+    (`hvp_groups_plain`, whose index_add_ adds with atomics, in no fixed
+    order) in place of the kernel; Newton and CG iterations per step of
+    each. Writes chiprun_out/witness/witness_b.json."""
+    from stark_tpu_torch.ops import hvp_bucket as hb
+    from stark_tpu_torch.solver import assembly
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    os.makedirs(WITNESS_DIR, exist_ok=True)
+    log(card_line())
+    box = lambda: (lambda s, c, spin: (s, c.point_set, spin))(
+        *make_spinning_box(N_SBC, "float32"))
+    out = {"card": card_line(), "runs": [
+        witness_scene(box, SBC_SECONDS, "phase 7, kernel B")[0],
+        witness_scene(box, SBC_SECONDS, "phase 7, kernel B, start moved one ulp",
+                      moved=True)[0]]}
+    kernel = assembly._hvp_kernel
+    assembly._hvp_kernel = lambda p, groups, site=None: hb.hvp_groups_plain(p, groups)
+    try:
+        out["runs"].append(witness_scene(box, SBC_SECONDS, "phase 7, B's twin on the card")[0])
+    finally:
+        assembly._hvp_kernel = kernel
+    with open(os.path.join(WITNESS_DIR, "witness_b.json"), "w") as f:
         json.dump(out, f, indent=1)
     log(json.dumps({"ok": True}))
     return 0
@@ -3469,11 +3529,13 @@ def hold_exact(name, got, want):
 def linsolve_checks(sim) -> dict:
     """Kernels AA-AC against their twins at the simulation's state (phase
     7's, in JAX's single bucket): the tables bit for bit, the hvp and both
-    dense layouts within 64 eps sum|terms|. Each kernel timed in a CUDA
+    dense layouts within 64 eps sum|terms|; kernel B at the fused solve's
+    product (the static bucket and the live pool, `hvp_site`). Each kernel timed in a CUDA
     graph, its twin from host launches (kernel E's twin, torch.nonzero,
     reads the host), with its one-call PyTorch yardstick and its bound on
     this state's data."""
-    from stark_tpu_torch.ops import dense_runs as dr, hvp_table as htb, tables as tb
+    from stark_tpu_torch.ops import dense_runs as dr, hvp_bucket as hb, hvp_table as htb
+    from stark_tpu_torch.ops import tables as tb
     from stark_tpu_torch.tools import profile_linsolve as pl
 
     st = pl.linear_system(sim)
@@ -3550,6 +3612,14 @@ def linsolve_checks(sim) -> dict:
         plain_ms=graph_ms(lambda: htb.hvp_table_plain(p, groups, entry)),
         library_ms=lib_ms, timed=timed, bound_ms=bnd[0], bound_by=bnd[1],
         shape=f"H ({E}, {3 * b}, {3 * b}), {kept} table entries, p ({n}, 3)")
+    # ---- B at the fused solve's product: the static bucket and the pool
+    solver = [(st.topo.conn_cat32, st.H_stat, st.topo.csr_cat)]
+    if st.pool is not None:
+        solver.append((st.pool.conn32, st.pool.H, st.pool.csr))
+    q_ev = st.ev.hvp_bucket(p, st.H_stat, st.topo, st.pool)
+    assert torch.equal(q_ev, hb.hvp_groups(p, solver)), \
+        "Evaluators.hvp_bucket and one launch over its buckets differ"
+    out["hvp_bucket[solver]"] = hvp_site("phase 7 solver product", solver, n, p)
     # ---- AC, both layouts; the yardstick: index_add_ of the pair values
     vals = dr.pair_values(H)
     pid_l = pid.to(torch.int64)
@@ -3582,8 +3652,9 @@ def linsolve_checks(sim) -> dict:
 def z_checks(sim) -> dict:
     """Kernel Z against its twin at phase 7's d = 3 rows (the box's fix,
     rb_constraint_global_directions, JAX's exact-eigh branch) and on a
-    seeded d = 96 stack (the wide layout), converged, within 2000 eps
-    max|H_e| per matrix and every matrix converged; timed with eigh as its
+    seeded d = 96 stack (the shared wide layout) in float32 and float64,
+    converged: within 2000 eps max|H_e| per matrix, every matrix
+    converged, at d = 96 after the twin's sweeps; timed with eigh as its
     yardstick (from host launches: eigh reads the host)."""
     from stark_tpu_torch.ops import pd_project as pd
     from stark_tpu_torch.tools import profile_linsolve as pl
@@ -3594,18 +3665,26 @@ def z_checks(sim) -> dict:
     A = rng.normal(size=(8, Z_SEEDED_D, Z_SEEDED_D))
     H96 = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), dtype=H3.dtype, device=DEVICE)
     out = {}
-    for label, H in (("d3", H3), ("d96", H96)):
+    for label, H in (("d3", H3), ("d96", H96), ("d96_f64", H96.double())):
+        E, d, _ = H.shape
         unconv = torch.zeros((), dtype=torch.int32, device=DEVICE)
-        got, ch = pd.pd_project_z(H, 1e-10, False, None, 0, unconv)
+        sweeps = torch.zeros((E,), dtype=torch.int32, device=DEVICE)
+        got, ch = pd.pd_project_z(H, 1e-10, False, None, 0, unconv, sweeps)
         ref, ch_ref = pd.pd_project_z_plain(H, 1e-10, False, None, 0)
+        sw = pd._jacobi_eigh_converged(H)[3]
         torch.cuda.synchronize()
         assert int(unconv) == 0 and torch.equal(ch, ch_ref), f"kernel Z at {label}"
+        # the wide layouts round their rotations as the twin does; the warp
+        # layout contracts FMAs, which can move a stop test by a sweep
+        same = torch.equal(sweeps.long(), sw)
+        log(f"  pd_project_z[{label}] ({pd.z_layout(d, H.dtype)}): sweeps {sweeps.tolist()}, "
+            f"the twin's {sw.tolist()}")
+        assert same or d <= pd.KERNEL_WIDE_MAX_D, \
+            f"kernel Z at {label}: other sweeps than the twin"
         tol = 2000.0 * torch.finfo(H.dtype).eps * H.abs().amax(dim=(1, 2), keepdim=True)
         err = check(f"pd_project_z[{label}]", H.dtype, (got - ref).abs(),
                     tol + torch.finfo(H.dtype).tiny)
-        E, d, _ = H.shape
         n_rounds = d if d % 2 else d - 1
-        sw = pd._jacobi_eigh_converged(H)[3]
         flops = float(sw.sum()) * n_rounds * 9 * d * d + E * 3 * d ** 3
         bnd = bound_ms(nbytes(H, got, ch), flops, H.dtype)
         out[label] = dict(
@@ -3613,7 +3692,7 @@ def z_checks(sim) -> dict:
             plain_ms=events_ms(lambda: pd.pd_project_z_plain(H, 1e-10, False, None, 0),
                                iters=3),
             library_ms=events_ms(lambda: torch.linalg.eigh(H), iters=5),
-            bound_ms=bnd[0], bound_by=bnd[1],
+            bound_ms=bnd[0], bound_by=bnd[1], layout=pd.z_layout(d, H.dtype),
             shape=f"H {tuple(H.shape)}, converged in {int(sw.min())}-{int(sw.max())} sweeps")
     log("  Z: " + json.dumps(out))
     return out
@@ -3978,7 +4057,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                         **r24[name]})
     for name, source, replaces in PHASE25_KERNELS:
         if name == "pd_project_z":
-            r = dict(r25[name]["d3"], seeded_d96=r25[name]["d96"])
+            r = dict(r25[name]["d3"], seeded_d96=r25[name]["d96"],
+                     seeded_d96_f64=r25[name]["d96_f64"])
             launches = launches_sbc.get(name, 0)
         else:
             r, launches = r25[name], launches25.get(name, 0)
@@ -4021,7 +4101,13 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
             mode = "C0" if name.startswith("friction_") else "Cubic"
             kernels.append(egh_record(name, t_off[name], r17["off_path"][f"{name}[{mode}]"],
                                       spills, state="seeded"))
-    summary = {"card": card, "runs": {"cloth64_f32": run64,
+    # Newton iterations of the scenes whose CG products go through kernel B
+    newton = {"phase 7": fields["newton_iters"], "phase 10": r10["fields"]["newton_iters"],
+              "phase 12": r12["fields"]["newton_iters"],
+              "phase 14": r14["fields"]["newton_iters"],
+              "phase 15": {k: r.get("newton_per_step") for k, r in runs15.items()}}
+    log("Newton iterations: " + json.dumps(newton))
+    summary = {"card": card, "newton": newton, "runs": {"cloth64_f32": run64,
                                       "cloth32_f32": run32,
                                       "spinning_box32_f32": fields,
                                       "spinning_box32_friction_f32": r10["fields"],
@@ -4079,4 +4165,6 @@ if __name__ == "__main__":
         sys.exit(attachments_run(*sys.argv[2:]))
     if len(sys.argv) == 2 and sys.argv[1] == "--witness":
         sys.exit(witness_run())
+    if len(sys.argv) == 2 and sys.argv[1] == "--witness-b":
+        sys.exit(witness_b_run())
     sys.exit(main())

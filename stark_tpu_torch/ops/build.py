@@ -51,9 +51,11 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # sources whose value-only and derivative forms must round alike (and kernel
 # Y, whose axpys round as its plain version's); the g++ host build takes the
-# egh_ sources alone
+# egh_ sources alone. STARK_TPU_TORCH_NO_FMA (source names, comma-separated)
+# adds sources, to measure what contraction changes (ROADMAP Queue 3 item 2)
 NO_FMA_PREFIX = "egh_"
-NO_FMA_SOURCES = ("pcg_step.cu",)
+NO_FMA_SOURCES = ("pcg_step.cu",) + tuple(
+    s for s in os.environ.get("STARK_TPU_TORCH_NO_FMA", "").split(",") if s)
 NO_FMA_FLAGS = ["-fmad=false"]
 # sources compiled as several objects, one nvcc process each, all started
 # with the others: egh_contact.cu's 14 dual kernels took 205 s as one
@@ -84,9 +86,11 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "stk_segment_reduce": [_P, _I, _P, _P, _I, _P, _P],
     "stk_direct_dense": [_P, _P, _P, _I, _I, _P, _P],
-    "stk_hvp_bucket": [_P, _P, _I, _P, _I, _P, _P, _P, _P],
+    # kernel B: host arrays of the groups' H, conn, arity, perm and offsets
+    "stk_hvp_bucket": [_P, _P, _P, _P, _P, _I, _P, _I, _P, _P, _P],
     "stk_pd_project": [_P, _I, _I, _P, _I, _I, _D, _I, _P, _P, _P, _P],
-    "stk_pd_project_z": [_P, _I, _I, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P],
+    "stk_pd_project_z": [_P, _I, _I, _P, _P, _I, _I, _I, _D, _I, _P, _P, _P, _P, _P, _P,
+                         _P],
     "stk_block3_inverse": [_P, _I, _D, _P, _P],
     # kernels AB and AC (the gather-table hvp and the dense run sums)
     "stk_hvp_table": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],

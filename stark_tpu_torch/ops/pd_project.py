@@ -15,7 +15,8 @@ eigh of `batched_eigh` (jacobi_sweeps = 0, or d <= 3), as Jacobi run to
 convergence (each matrix sweeps until every |a_ik| <= eps max_j |a_jj|
 above the diagonal, then once more; at most Z_MAX_SWEEPS sweeps), which a CUDA graph can capture where
 cuSOLVER's eigh cannot; and JAX's fixed-sweep `_jacobi_eigh` at d > 64 (a
-block per matrix over a global scratch buffer). Its twin is
+block per matrix, A and V in shared memory where they fit, else in a global
+scratch buffer: `z_layout`). Its twin is
 `_jacobi_eigh_converged`: the same schedule and angle with the same stop
 test. A matrix still unconverged after Z_MAX_SWEEPS sweeps adds one to the
 caller's `unconverged` counter on the device; the solvers read it with their
@@ -34,12 +35,14 @@ from . import build
 # its one-warp layout (`pd_project_wide`)
 KERNEL_MAX_D = 16
 KERNEL_WIDE_MAX_D = 64
-# kernel Z: the converged mode's sweep limit; its wide layout keeps cr, sr,
-# the clamped eigenvalues and the partners in 48 KB of shared memory, and
-# walks at most Z_WIDE_GRID blocks over the matrices
+# kernel Z: the converged mode's sweep limit; its global wide layout keeps
+# cr, sr, the clamped eigenvalues and the partners in 48 KB of shared
+# memory, and walks at most Z_WIDE_GRID blocks over the matrices; its
+# shared wide layout takes what a block may ask for on sm_90
 Z_MAX_SWEEPS = 30
 Z_MAX_D = 1536
 Z_WIDE_GRID = 264
+Z_SHARED_BYTES = 232448
 
 
 def _round_robin_rounds(d: int):
@@ -104,6 +107,33 @@ def _partner_table(d: int, device: torch.device) -> torch.Tensor:
         rows.append(partner)
     return torch.as_tensor(np.asarray(rows, dtype=np.int32).reshape(-1, d),
                            device=device).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
+def _unit_table(d: int, device: torch.device) -> torch.Tensor:
+    """(n_rounds, (d + 1) // 2, 2) int32: each round's pairs (p, q) in
+    schedule order, then the bye (i, i) of an odd d — the shared wide
+    layout's copy of the schedule."""
+    rounds = []
+    for pairs in _round_robin_rounds(d):
+        seen = {i for pq in pairs for i in pq}
+        rounds.append(list(pairs) + [(i, i) for i in range(d) if i not in seen])
+    return torch.as_tensor(np.asarray(rounds, dtype=np.int32).reshape(len(rounds), -1, 2),
+                           device=device).contiguous()
+
+
+def z_layout(d: int, dtype: torch.dtype) -> str:
+    """Kernel Z's layout for (d, d) matrices of `dtype`: "warp" for d <=
+    64, "shared" where A and V (row stride d | 1), three d-vectors and d + 1
+    ints fit Z_SHARED_BYTES (d <= 119 in float64, d <= 169 in float32),
+    else "global". The kernel takes the shared layout when it is handed the
+    schedule by pair (`_unit_table`), the global one when handed a scratch
+    buffer."""
+    if d <= KERNEL_WIDE_MAX_D:
+        return "warp"
+    size = torch.empty((), dtype=dtype).element_size()
+    need = (2 * d * (d | 1) + 3 * d) * size + (d + 1) * 4
+    return "shared" if need <= Z_SHARED_BYTES else "global"
 
 
 def _sweep(A, V, tabs):
@@ -226,16 +256,21 @@ def z_converges(d: int, jacobi_sweeps: int) -> bool:
 
 
 def pd_project_z_plain(H: torch.Tensor, eps: float, mirroring: bool,
-                       elem_mask=None, jacobi_sweeps: int = 0, unconverged=None):
+                       elem_mask=None, jacobi_sweeps: int = 0, unconverged=None,
+                       sweeps=None):
     """Kernel Z's plain twin: the converged Jacobi (`z_converges`) or
     `_jacobi_eigh` at the given sweeps, then the clamp and rebuild. Adds
-    the unconverged count to `unconverged` (a 0-d int32 tensor) if given."""
+    the unconverged count to `unconverged` (a 0-d int32 tensor) and writes
+    each matrix's sweeps into `sweeps` ((E,) int32) if given."""
     if z_converges(H.shape[-1], jacobi_sweeps):
-        w, V, n_un, _sweeps = _jacobi_eigh_converged(H)
+        w, V, n_un, ran = _jacobi_eigh_converged(H)
         if unconverged is not None:
             unconverged.add_(n_un.to(unconverged.device))
     else:
         w, V = _jacobi_eigh(H, jacobi_sweeps)
+        ran = torch.full((H.shape[0],), jacobi_sweeps)
+    if sweeps is not None:
+        sweeps.copy_(ran)
     return _rebuild(H, w, V, eps, mirroring, elem_mask)
 
 
@@ -293,18 +328,19 @@ def _mask_u8(elem_mask, H, name):
 
 
 def pd_project_z(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
-                 jacobi_sweeps: int = 0, unconverged=None):
+                 jacobi_sweeps: int = 0, unconverged=None, sweeps=None):
     """Kernel Z: (H_projected, changed) by Jacobi run to convergence where
     `z_converges` (jacobi_sweeps == 0 or d <= 3; at most Z_MAX_SWEEPS
-    sweeps), else by `jacobi_sweeps` fixed sweeps (its wide layout, d >
-    64). `unconverged`, a 0-d int32 tensor on H's device, receives the
-    count of matrices left unconverged (added on the device, no host
-    read)."""
+    sweeps), else by `jacobi_sweeps` fixed sweeps (its wide layouts, d >
+    64, `z_layout`). `unconverged`, a 0-d int32 tensor on H's device,
+    receives the count of matrices left unconverged (added on the device,
+    no host read); `sweeps`, an (E,) int32 tensor on H's device, the
+    sweeps each matrix ran (the twin's fourth output)."""
     if H.dim() != 3 or H.shape[1] != H.shape[2]:
         raise ValueError(f"pd_project_z: expected (E, d, d), got {tuple(H.shape)}")
     if H.device.type == "cpu":
         return pd_project_z_plain(H, eps, mirroring, elem_mask, jacobi_sweeps,
-                                  unconverged)
+                                  unconverged, sweeps)
     E, d, _ = H.shape
     if d > Z_MAX_D:
         raise ValueError(f"pd_project_z: d={d} exceeds the kernel's {Z_MAX_D}")
@@ -316,20 +352,29 @@ def pd_project_z(H: torch.Tensor, eps: float, mirroring: bool, elem_mask=None,
         build.require_cuda("pd_project_z", H, unconverged)
         if unconverged.dtype != torch.int32 or unconverged.numel() != 1:
             raise TypeError("pd_project_z: unconverged must be one int32 value")
-    scratch = None
-    if d > KERNEL_WIDE_MAX_D and E > 0:
+    if sweeps is not None:
+        build.require_cuda("pd_project_z", H, sweeps)
+        if sweeps.dtype != torch.int32 or sweeps.shape != (E,):
+            raise TypeError("pd_project_z: sweeps must be (E,) int32")
+    layout = z_layout(d, H.dtype)
+    scratch = units = None
+    if layout == "global" and E > 0:
         scratch = torch.empty((min(E, Z_WIDE_GRID), 4, d, d), dtype=H.dtype,
                               device=H.device)
+    if layout == "shared":
+        units = _unit_table(d, H.device)
     sched = _partner_table(d, H.device)
     fn = build.entry("stk_pd_project_z", H.dtype)
     out = torch.empty_like(H)
     changed = torch.empty((E,), dtype=torch.uint8, device=H.device)
-    rc = fn(H.data_ptr(), E, d, sched.data_ptr(), sched.shape[0],
+    rc = fn(H.data_ptr(), E, d, sched.data_ptr(),
+            None if units is None else units.data_ptr(), sched.shape[0],
             Z_MAX_SWEEPS if converge else int(jacobi_sweeps), int(converge),
             float(eps), int(bool(mirroring)), None if mask is None else mask.data_ptr(),
             out.data_ptr(), changed.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             None if unconverged is None else unconverged.data_ptr(),
+            None if sweeps is None else sweeps.data_ptr(),
             build.stream_ptr(H.device))
     build.check_status("pd_project_z", rc)
     build.count_launch("pd_project_z")

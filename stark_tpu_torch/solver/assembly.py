@@ -9,7 +9,8 @@ staged solves run:
     `jax.hessian`) on the CPU,
   * every per-block reduction through kernel A (`ops.segment_reduce`), an
     ordered segmented sum over a CSR,
-  * the CG Hessian-vector product through kernel B (`ops.hvp_bucket`),
+  * the CG Hessian-vector product through kernel B (`ops.hvp_bucket`), one
+    launch per product over every bucket or arity group,
   * the 3x3 block preconditioner through kernel D (`ops.block3`),
   * the dense Newton-Schulz preconditioner for small scenes, assembled
     through kernel A keyed by block-pair id; its GEMMs stay `torch.matmul`
@@ -31,7 +32,8 @@ Two buckets. The static families are padded to the largest STATIC arity
 once per static topology (`Topology`). The live contact rows form a second
 bucket padded to the largest contact arity (5: 15x15), whose CSR is rebuilt
 on the device every Newton iteration without a host sync (`LivePool`).
-Kernels A and B run once per bucket and the two partial results are added.
+Kernel A runs once per bucket and the two partial results are added;
+kernel B takes both buckets in one launch.
 The JAX package uses one 15x15 bucket for everything; values agree, layouts
 differ.
 
@@ -39,10 +41,10 @@ The staged solver (solver/newton.py `_solve_staged`) keeps JAX's arity
 groups instead (`hvp_context`, stark_tpu assembly.py:159-200, 251-268):
 arity groups ascending, families by name within a group, each group with
 its own CSR (`staged_groups`, built once per Newton iteration from the
-tables alone) and one launch of kernel B (site hvp_bucket[staged]) or A
-(diag) per group, the partial sums added in ascending arity as JAX adds
-them. No row is padded: an inertia row stays 3x3 where the fused bucket
-makes it 12x12. DirectLLT's dense (3n)^2 Hessian is written per block pair by
+tables alone), one launch of kernel A (diag) per group and one of kernel B
+(site hvp_bucket[staged]) over all groups, the partial sums added in
+ascending arity as JAX adds them. No row is padded: an inertia row stays
+3x3 where the fused bucket makes it 12x12. DirectLLT's dense (3n)^2 Hessian is written per block pair by
 kernel A's direct site, straight into JAX's block-major layout, in the
 order of JAX's scatter-adds.
 """
@@ -59,7 +61,7 @@ from ..ops import egh
 from ..ops import tables as _tables
 from ..ops.block3 import block3_apply, block3_inverse
 from ..ops.compact import compact
-from ..ops.hvp_bucket import hvp_bucket as _hvp_kernel
+from ..ops.hvp_bucket import hvp_groups as _hvp_kernel
 from ..ops.hvp_table import hvp_table as _hvp_table_kernel
 from ..ops.segment_reduce import Csr, build_csr, dense_direct, segment_reduce, sort_pairs
 from .potential import PotentialFamily
@@ -354,15 +356,12 @@ class Evaluators:
                 for a, g in groups.items()}
 
     def hvp_ctx(self, p, ctx: Dict[int, StagedGroup]):
-        """q = H p: kernel B once per arity group, the partial products
-        added in ascending arity."""
-        p = p.contiguous()
-        q = None
-        for a in sorted(ctx):
-            g = ctx[a]
-            qa = _hvp_kernel(p, g.conn32, g.H, g.csr, site="staged")
-            q = qa if q is None else q + qa
-        return q if q is not None else torch.zeros_like(p)
+        """q = H p: one launch of kernel B over the arity groups, the
+        partial products added in ascending arity."""
+        if not ctx:
+            return torch.zeros_like(p)
+        return _hvp_kernel(p.contiguous(), [(ctx[a].conn32, ctx[a].H, ctx[a].csr)
+                                            for a in sorted(ctx)], site="staged")
 
     def hvp(self, p, data, hess):
         """q = H p over the element Hessians of `data`'s families."""
@@ -417,12 +416,12 @@ class Evaluators:
         return conn_cat.reshape(-1)
 
     def hvp_bucket(self, p, H_cat, topo: Topology, pool: Optional[LivePool] = None):
-        """q = H p: kernel B over the static bucket, plus over the pool."""
-        p = p.contiguous()
-        q = _hvp_kernel(p, topo.conn_cat32, H_cat, topo.csr_cat)
+        """q = H p: one launch of kernel B over the static bucket and the
+        pool, the pool's product added second."""
+        groups = [(topo.conn_cat32, H_cat, topo.csr_cat)]
         if pool is not None:
-            q = q + _hvp_kernel(p, pool.conn32, pool.H, pool.csr)
-        return q
+            groups.append((pool.conn32, pool.H, pool.csr))
+        return _hvp_kernel(p.contiguous(), groups)
 
     @staticmethod
     def _diag_payload(H):

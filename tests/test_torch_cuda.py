@@ -104,6 +104,68 @@ def test_hvp_bucket_matches_twin(dev, dtype, b):
     assert torch.all(err <= _tol(absref, dtype, 64.0))
 
 
+def _skewed_groups(dtype, n=300, arities=(1, 3, 4, 5), hot=7, hot_entries=1500, seed=11):
+    """Kernel B's groups on a skewed layout: block `hot` in `hot_entries`
+    entries spread over the groups (a rigid body's row), 30 blocks in
+    none, about one slot in ten the dummy id n."""
+    rng = np.random.default_rng(seed)
+    empty = rng.choice(np.setdiff1d(np.arange(n), [hot]), 30, replace=False)
+    ids = np.setdiff1d(np.arange(n), empty)
+    groups = []
+    for g, a in enumerate(arities):
+        n_hot = hot_entries // len(arities)
+        conn = np.concatenate([rng.choice(ids, size=(200, a)), rng.choice(ids, size=(n_hot, a))])
+        conn[rng.random(conn.shape) < 0.1] = n
+        conn[-n_hot:, 0] = hot
+        A = rng.normal(size=(len(conn), 3 * a, 3 * a))
+        conn = torch.as_tensor(conn, dtype=torch.int32)
+        groups.append((conn, torch.as_tensor(A + A.transpose(0, 2, 1), dtype=dtype),
+                       sr.build_csr(conn.reshape(-1), n)))
+    p = torch.as_tensor(rng.normal(size=(n, 3)), dtype=dtype)
+    return groups, p, empty
+
+
+def _on(groups, dev):
+    return [(c.to(dev), H.to(dev), sr.Csr(s.perm.to(dev), s.offsets.to(dev), s.seg.to(dev),
+                                          s.n_seg, s.n_rows)) for c, H, s in groups]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_hvp_groups_match_twin_on_a_skewed_layout(dev, dtype):
+    """Kernel B over four groups in one launch (one row of 1,500 entries,
+    empty rows, dummy ids) against its twin (each group's product, added in
+    order) within 64 eps sum|terms|; the same bits from two launches; one
+    launch per product; a single group and eight groups too, and twelve
+    groups in two launches, the second adding its four to the first's q."""
+    groups, p, empty = _skewed_groups(dtype)
+    ref = hb.hvp_groups_plain(p, groups)
+    absref = hb.hvp_groups_plain(p.abs(), [(c, H.abs(), s) for c, H, s in groups])
+    g = _on(groups, dev)
+    lens = sum(s.offsets[1:] - s.offsets[:-1] for _c, _H, s in groups)
+    assert int(lens.max()) > 1000 and int(lens[empty].max()) == 0
+    before = build.launches["hvp_bucket"]
+    q, q2 = hb.hvp_groups(p.to(dev), g), hb.hvp_groups(p.to(dev), g)
+    torch.cuda.synchronize()
+    assert build.launches["hvp_bucket"] == before + 2
+    assert torch.equal(q, q2)
+    assert torch.all((q.cpu() - ref).abs() <= _tol(absref, dtype, 64.0))
+    assert torch.all(q.cpu()[empty] == 0)
+    one = hb.hvp_bucket(p.to(dev), *g[2])
+    eight = hb.hvp_groups(p.to(dev), g + g)
+    torch.cuda.synchronize()
+    ref1 = hb.hvp_bucket_plain(p, *groups[2])
+    abs1 = hb.hvp_bucket_plain(p.abs(), groups[2][0], groups[2][1].abs(), groups[2][2])
+    assert torch.all((one.cpu() - ref1).abs() <= _tol(abs1, dtype, 64.0))
+    assert torch.all((eight.cpu() - hb.hvp_groups_plain(p, groups + groups)).abs()
+                     <= _tol(2 * absref, dtype, 64.0))
+    before = build.launches["hvp_bucket"]
+    twelve = hb.hvp_groups(p.to(dev), g + g + g)
+    torch.cuda.synchronize()
+    assert build.launches["hvp_bucket"] == before + 2
+    assert torch.all((twelve.cpu() - hb.hvp_groups_plain(p, groups + groups + groups)).abs()
+                     <= _tol(3 * absref, dtype, 64.0))
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("d", [2, 3, 9, 12, 15, 16])
 @pytest.mark.parametrize("mirroring,masked", [(False, False), (True, True)])
@@ -126,12 +188,14 @@ def test_pd_project_matches_twin(dev, dtype, d, mirroring, masked):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [17, 24, 33, 64])
+@pytest.mark.parametrize("d", [17, 24, 33, 64, 65, 96, 112, 128])
 @pytest.mark.parametrize("sweeps", [8, 16])
 def test_pd_project_wide_matches_twin(dev, dtype, d, sweeps):
-    """Kernel C's one-warp layout (16 < d <= 64), reached through
-    project_family_to_pd as a family of more than 16 DOFs reaches it,
-    against the twin's Jacobi on the same sweeps. A matrix whose twin
+    """Kernel C's one-warp layout (16 < d <= 64), and past it kernel Z's
+    wide layouts (A and V in shared memory to d = 119 in float64 and 169 in
+    float32, else a global scratch buffer: d = 128 in float64), reached
+    through project_family_to_pd as a family of more than 16 DOFs reaches
+    them, against the twin's Jacobi on the same sweeps. A matrix whose twin
     result lies within 100 eps max|H_e| of the exact projection (eigh in
     float64) has converged: there the kernel is within 2000 eps max|H_e|
     of the twin, as at d <= 16. Where the sweeps leave matrices
@@ -144,11 +208,12 @@ def test_pd_project_wide_matches_twin(dev, dtype, d, sweeps):
     H = torch.as_tensor(0.5 * (A + A.transpose(0, 2, 1)), dtype=dtype, device=dev)
     H[::3] = H[::3] @ H[::3].transpose(1, 2)            # PD: passes through
     mask = torch.as_tensor(rng.random(129) < 0.8, device=dev)
-    before = build.launches["pd_project[wide]"]
+    site = "pd_project[wide]" if d <= pd.KERNEL_WIDE_MAX_D else "pd_project_z"
+    before = build.launches[site]
     out, ch = tproj.project_family_to_pd(H, 1e-9, True, mask, jacobi_sweeps=sweeps)
     ref, ch_ref = pd.pd_project_plain(H, 1e-9, True, mask, sweeps)
     torch.cuda.synchronize()
-    assert build.launches["pd_project[wide]"] == before + 1
+    assert build.launches[site] == before + 1
     assert torch.equal(ch, ch_ref)
     assert torch.equal(out[~ch], H[~ch])
     H64 = H.double().cpu()
@@ -161,7 +226,8 @@ def test_pd_project_wide_matches_twin(dev, dtype, d, sweeps):
     err = (out - ref).double().cpu().abs().amax(dim=(1, 2))
     c = ch.cpu()
     conv = c & (spread <= 100.0 * eps * scale)
-    print(f"d={d} {dtype} sweeps={sweeps}: {int(conv.sum())} of {int(c.sum())} "
+    print(f"d={d} {dtype} sweeps={sweeps} ({pd.z_layout(d, dtype)}): "
+          f"{int(conv.sum())} of {int(c.sum())} "
           f"converged, |kernel - twin| / (eps max|H_e|) there "
           f"{float((err / (eps * scale))[conv].max()) if conv.any() else 0.0:.4g}; "
           f"largest distance from the projection / (eps max|H_e|), kernel "
@@ -803,6 +869,81 @@ def test_soft_boxes_on_card_at_8_sweeps_track_the_cpu_port(dev):
     assert dev_m < 1e-6
 
 
+def _first_iteration_projections(sweeps: int):
+    """[(H, eps, mirroring, elem_mask)] that the first Newton iteration of
+    the soft boxes' first step (the scene of _soft_boxes) hands the PD
+    projection on the CPU at `sweeps` sweeps, for every family wider than
+    3, in call order."""
+    from stark_tpu_torch.solver import project
+    from stark_tpu_torch.tools.scenes import deformable_and_rigid_collisions
+
+    sim, _h = deformable_and_rigid_collisions("float64", "cpu", 2, 1)
+    sim.stark.settings.device.jacobi_sweeps = sweeps
+    calls, seen = [], []
+    inner, inner_all = project.project_family_to_pd, project.project_all
+
+    def all_(*a, **k):
+        seen.append(1)
+        return inner_all(*a, **k)
+
+    def fam(H, eps, mirroring, elem_mask=None, jacobi_sweeps=0, unconverged=None):
+        if len(seen) == 1 and jacobi_sweeps == sweeps and H.shape[-1] > 3:
+            calls.append((H.clone(), eps, mirroring,
+                          None if elem_mask is None else elem_mask.clone()))
+        return inner(H, eps, mirroring, elem_mask, jacobi_sweeps, unconverged)
+
+    project.project_family_to_pd, project.project_all = fam, all_
+    try:
+        assert sim.run_one_time_step()
+    finally:
+        project.project_family_to_pd, project.project_all = inner, inner_all
+    return calls
+
+
+def test_pd_project_on_the_soft_boxes_first_iteration(dev):
+    """Kernel C at 8 sweeps on the exact inputs of the soft boxes' first
+    Newton iteration (the tets' 12x12, the rigid bodies' 6x6 and the contact
+    pool's 15x15, f64) against its twin on the CPU, by the rule of
+    test_pd_project_wide_matches_twin (max|H_e| at least the projection's
+    eps, which a zero H_e becomes): the same changed flags, unchanged
+    matrices passed through, a converged matrix within 2000 eps max|H_e|
+    of the twin, an unconverged one no farther from the exact projection
+    than twice the twin. Prints, per width, the entries that differ from
+    the CPU twin bit for bit, for the kernel and for the twin run on the
+    card (CUDA's atan2, cos and sin). Built with STARK_TPU_TORCH_NO_FMA=
+    pd_project.cu it measures kernel C without FMA contraction (ROADMAP
+    Queue 3 item 2)."""
+    calls = _first_iteration_projections(8)
+    assert any(H.shape[-1] == 12 for H, _e, _m, _k in calls)
+    before = build.launches["pd_project"]
+    for H, eps, mirroring, mask in calls:
+        m_dev = None if mask is None else mask.to(dev)
+        out, ch = pd.pd_project(H.to(dev), eps, mirroring, m_dev, 8)
+        twin_card = pd.pd_project_plain(H.to(dev), eps, mirroring, m_dev, 8)[0]
+        ref, ch_ref = pd.pd_project_plain(H, eps, mirroring, mask, 8)
+        torch.cuda.synchronize()
+        out, ch, twin_card = out.cpu(), ch.cpu(), twin_card.cpu()
+        eps64 = torch.finfo(H.dtype).eps
+        scale = H.abs().amax(dim=(1, 2)).clamp_min(eps)     # a zero H_e becomes eps I
+        print(f"d={H.shape[-1]} x {H.shape[0]} ({build.NO_FMA_SOURCES}): entries differing "
+              f"from the CPU twin, kernel {int((out != ref).sum())}, twin on the card "
+              f"{int((twin_card != ref).sum())} of {H.numel()}; matrices "
+              f"{int((out != ref).any(dim=(1, 2)).sum())}; largest |kernel - twin| / "
+              f"max|H_e| {float(((out - ref).abs().amax(dim=(1, 2)) / scale).max()):.4g}")
+        assert torch.equal(ch, ch_ref)
+        assert torch.equal(out[~ch], H[~ch])
+        exact = pd.pd_project_plain(H, eps, mirroring, mask, 0)[0]
+        spread = (ref - exact).abs().amax(dim=(1, 2))
+        dist = (out - exact).abs().amax(dim=(1, 2))
+        err = (out - ref).abs().amax(dim=(1, 2))
+        conv = ch & (spread <= 100.0 * eps64 * scale)
+        assert torch.all(err[conv] <= 2000.0 * eps64 * scale[conv])
+        un = ch & ~conv
+        if un.any():
+            assert float((dist / scale)[un].max()) <= 2.0 * float((spread / scale)[un].max())
+    assert build.launches["pd_project"] == before + len(calls)
+
+
 def test_hanging_rod_and_net_on_card_track_the_cpu_port(dev):
     """Kernels R (and P, A-D): tests/test_newton_cloth.py's hanging rod for
     0.2 s and a 6x6 hanging_net for 3 steps, f64, on the card against the
@@ -982,11 +1123,11 @@ def _staged_cloth(device, mode="ProjectedNewton", solver="BDPCG", n=6, squeeze=1
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_staged_hvp_and_direct_assembly_match_twins(dev, dtype):
-    """Kernel B at its staged site (one launch per arity group) and kernel
-    A's direct site (DirectLLT's dense Hessian) on a 6x6 cloth's element
-    Hessians at a random state, against the twins on the CPU: B within the
-    sum tolerance 64 eps * sum|terms|, A's direct site bit for bit (it sums
-    each block pair in the twin's order)."""
+    """Kernel B at its staged site (one launch over the arity groups) and
+    kernel A's direct site (DirectLLT's dense Hessian) on a 6x6 cloth's
+    element Hessians at a random state, against the twins on the CPU: B
+    within the sum tolerance 64 eps * sum|terms|, A's direct site bit for
+    bit (it sums each block pair in the twin's order)."""
     sim, _h = _staged_cloth("cpu", solver="DirectLLT")
     sim.stark._initialize()
     nm = sim.stark.newton
@@ -1022,7 +1163,7 @@ def test_staged_hvp_and_direct_assembly_match_twins(dev, dtype):
     q_c, D_c, _l, _ld, _n = on("cpu")
     groups = ev.staged_groups(data)
     aq = ev.hvp_ctx(p.abs(), ev.hvp_context(groups, absh))
-    assert launched == n_groups >= 3 and launched_d == 1
+    assert launched == 1 and n_groups >= 3 and launched_d == 1
     assert torch.all((q_g - q_c).abs() <= _tol(aq, dtype, 64.0))
     assert torch.equal(D_g, D_c)
 
@@ -1319,12 +1460,16 @@ def _z_case(d, dtype, dev, E):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [3, 9, 64, 65, 128])
+@pytest.mark.parametrize("d", [3, 9, 64, 65, 96, 112, 128, 176])
 def test_pd_project_z_matches_twin(dev, dtype, d):
     """Kernel Z converged (jacobi_sweeps = 0) against its twin, both within
     2000 eps max|H_e| of the float64 eigh projection (the stop test makes
-    both converge), every matrix converged; at d > 64 also the wide layout
-    at JAX's fixed sweeps (12) against the twin's `_jacobi_eigh`: where the
+    both converge), every matrix converged; at d > 64 each matrix after the
+    twin's number of sweeps (the wide layouts round their rotations as the
+    twin does; the warp layouts contract FMAs, which can move a stop test
+    by a sweep), and the wide layouts (shared to d = 119 in float64 and 169
+    in float32, global past that: d = 128 in float64, 176 in both) at JAX's
+    fixed sweeps (12) against the twin's `_jacobi_eigh`: where the
     twin converged (within 100 eps max|H_e| of eigh) within 2000 eps
     max|H_e| of it, else the kernel's largest distance from the projection
     within twice the twin's."""
@@ -1338,8 +1483,13 @@ def test_pd_project_z_matches_twin(dev, dtype, d):
     out, ch = tproj.project_family_to_pd(H, 1e-9, True, mask, jacobi_sweeps=0,
                                          unconverged=unconv)
     ref, ch_ref = pd.pd_project_z_plain(H, 1e-9, True, mask, 0)
+    ran = torch.zeros((E,), dtype=torch.int32, device=dev)
+    pd.pd_project_z(H, 1e-9, True, mask, 0, None, ran)
+    ran_ref = pd._jacobi_eigh_converged(H)[3]
     torch.cuda.synchronize()
     assert int(unconv) == 0 and torch.equal(ch, ch_ref)
+    if d > pd.KERNEL_WIDE_MAX_D:
+        assert torch.equal(ran.long(), ran_ref), (ran.tolist(), ran_ref.tolist())
     assert torch.equal(out[~ch], H[~ch])
     c = ch.cpu()
     tol = 2000.0 * eps * scale[:, None, None]
@@ -1357,7 +1507,8 @@ def test_pd_project_z_matches_twin(dev, dtype, d):
     dist = (out.double().cpu() - exact).abs().amax(dim=(1, 2))
     err = (out - ref).double().cpu().abs().amax(dim=(1, 2))
     conv = c & (spread <= 100.0 * eps * scale)
-    print(f"d={d} {dtype} {sweeps} sweeps: {int(conv.sum())} of {int(c.sum())} converged")
+    print(f"d={d} {dtype} {sweeps} sweeps ({pd.z_layout(d, dtype)}): "
+          f"{int(conv.sum())} of {int(c.sum())} converged")
     assert torch.all(err[conv] <= 2000.0 * eps * scale[conv])
     un = c & ~conv
     if un.any():
