@@ -3295,11 +3295,11 @@ _SPILL_KEYS.update({"friction_" + stem: "11FamFrictionILb%dELb%dELb%dEEfLb1E" % 
 
 def spill_of(spills: dict, site: str):
     """The spill stores of a site's float32 derivative kernel (and, for
-    N and O, of the shared point-space function it calls), or None."""
+    N and O, of the shared per-lane function it calls), or None."""
     family = site.split("[")[1][:-1]
     out = [v for k, v in spills.items() if _SPILL_KEYS[family] in k]
     if site.startswith("egh_contact"):
-        kind = "contact_point_eghIfLb%dE" % family.startswith("ee")
+        kind = "contact_pair_eghIfLb%dE" % family.startswith("ee")
         out += [v for k, v in spills.items() if kind in k]
     return sum(out) if out else None
 
@@ -4101,6 +4101,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
             mode = "C0" if name.startswith("friction_") else "Cubic"
             kernels.append(egh_record(name, t_off[name], r17["off_path"][f"{name}[{mode}]"],
                                       spills, state="seeded"))
+    log("phase 17 spill stores (bytes, ptxas, float32 derivative kernels): " + json.dumps(
+        {k["name"]: k["spill_stores"] for k in kernels if "spill_stores" in k}))
     # Newton iterations of the scenes whose CG products go through kernel B
     newton = {"phase 7": fields["newton_iters"], "phase 10": r10["fields"]["newton_iters"],
               "phase 12": r12["fields"]["newton_iters"],

@@ -232,6 +232,127 @@ STK_HD Dual<T, N> log_(const Dual<T, N>& a) {
   return r;
 }
 
+// ---------------------------------------------------------------------------
+// hyper-dual numbers: one entry (a, b), a <= b, of a Dual<T, N>
+// ---------------------------------------------------------------------------
+// The value, the derivatives along two seeded variables a and b, and the
+// mixed second derivative d2 / da db. Each operation is the Dual<T, N>
+// formula above restricted to its gradient entries a and b and its Hessian
+// entry (a, b), term for term and in the same order, so a hyper-dual seeded
+// at (a, b) yields bit for bit the v, g[a], g[b] and h[(a, b)] of a Dual
+// seeded at every variable (kernels N and O spread a row's 78 entries over
+// the lanes of a warp, each lane carrying 4 values through the formula
+// where a Dual<T, 12> carries 91).
+template <typename T>
+struct HD {
+  T v, a, b, ab;
+};
+template <typename T>
+STK_HD T val(const HD<T>& x) {
+  return x.v;
+}
+template <typename T>
+STK_HD void set_const(HD<T>& x, T c) {
+  x.v = c;
+  x.a = T(0);
+  x.b = T(0);
+  x.ab = T(0);
+}
+// x = value, seeded as variable a (da = 1) and/or b (db = 1)
+template <typename T>
+STK_HD void seed_pair(HD<T>& x, T value, bool is_a, bool is_b) {
+  set_const(x, value);
+  if (is_a) x.a = T(1);
+  if (is_b) x.b = T(1);
+}
+template <typename T>
+STK_HD HD<T> operator+(const HD<T>& x, const HD<T>& y) {
+  return HD<T>{x.v + y.v, x.a + y.a, x.b + y.b, x.ab + y.ab};
+}
+template <typename T>
+STK_HD HD<T> operator-(const HD<T>& x, const HD<T>& y) {
+  return HD<T>{x.v - y.v, x.a - y.a, x.b - y.b, x.ab - y.ab};
+}
+template <typename T>
+STK_HD HD<T> operator-(const HD<T>& x) {
+  return HD<T>{-x.v, -x.a, -x.b, -x.ab};
+}
+template <typename T>
+STK_HD HD<T> operator+(const HD<T>& x, nd<T> c) {
+  HD<T> r = x;
+  r.v = x.v + c;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> operator+(nd<T> c, const HD<T>& x) {
+  HD<T> r = x;
+  r.v = c + x.v;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> operator-(const HD<T>& x, nd<T> c) {
+  HD<T> r = x;
+  r.v = x.v - c;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> operator-(nd<T> c, const HD<T>& x) {
+  HD<T> r = -x;
+  r.v = c - x.v;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> operator*(const HD<T>& x, nd<T> c) {
+  return HD<T>{x.v * c, x.a * c, x.b * c, x.ab * c};
+}
+template <typename T>
+STK_HD HD<T> operator*(nd<T> c, const HD<T>& x) {
+  return HD<T>{c * x.v, c * x.a, c * x.b, c * x.ab};
+}
+template <typename T>
+STK_HD HD<T> operator*(const HD<T>& x, const HD<T>& y) {
+  HD<T> r;
+  r.v = x.v * y.v;
+  r.a = x.v * y.a + y.v * x.a;
+  r.b = x.v * y.b + y.v * x.b;
+  r.ab = (x.v * y.ab + y.v * x.ab) + (x.a * y.b + x.b * y.a);
+  return r;
+}
+template <typename T>
+STK_HD HD<T> operator/(const HD<T>& x, nd<T> c) {
+  return HD<T>{x.v / c, x.a / c, x.b / c, x.ab / c};
+}
+template <typename T>
+STK_HD HD<T> operator/(const HD<T>& x, const HD<T>& y) {
+  HD<T> r;
+  r.v = x.v / y.v;
+  const T iy = T(1) / y.v;
+  r.a = (x.a - r.v * y.a) * iy;
+  r.b = (x.b - r.v * y.b) * iy;
+  r.ab = ((x.ab - r.v * y.ab) - (r.a * y.b + r.b * y.a)) * iy;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> sqrt_(const HD<T>& x) {
+  HD<T> r;
+  r.v = sqrt(x.v);
+  const T f1 = T(0.5) / r.v;
+  r.a = f1 * x.a;
+  r.b = f1 * x.b;
+  r.ab = f1 * x.ab - (r.a * r.b) / r.v;
+  return r;
+}
+template <typename T>
+STK_HD HD<T> log_(const HD<T>& x) {
+  HD<T> r;
+  r.v = log(x.v);
+  const T f1 = T(1) / x.v;
+  r.a = f1 * x.a;
+  r.b = f1 * x.b;
+  r.ab = f1 * x.ab - r.a * r.b;
+  return r;
+}
+
 // a * c + b: in float32 with one rounding (an FMA, as an explicit one
 // survives -fmad=false), as the twin's cuBLAS products round on the card;
 // rounded apart, the float32 strain gradient at the 64x64 cloth and a
@@ -253,6 +374,15 @@ STK_HD Dual<T, N> fma_(const Dual<T, N>& a, const Dual<T, N>& b, const Dual<T, N
     for (int j = i; j < N; ++j, ++k)
       r.h[k] = ((a.v * b.h[k] + b.v * a.h[k]) + (a.g[i] * b.g[j] + a.g[j] * b.g[i])) + c.h[k];
   }
+  return r;
+}
+template <typename T>
+STK_HD HD<T> fma_(const HD<T>& x, const HD<T>& y, const HD<T>& z) {
+  HD<T> r;
+  r.v = fma_(x.v, y.v, z.v);
+  r.a = (x.v * y.a + y.v * x.a) + z.a;
+  r.b = (x.v * y.b + y.v * x.b) + z.b;
+  r.ab = ((x.v * y.ab + y.v * x.ab) + (x.a * y.b + x.b * y.a)) + z.ab;
   return r;
 }
 template <typename T, int N>
@@ -446,6 +576,10 @@ template <typename T, int N>
 STK_HD void set_value(Dual<T, N>& x, T v) {
   x.v = v;
 }
+template <typename T>
+STK_HD void set_value(HD<T>& x, T v) {
+  x.v = v;
+}
 template <typename S, typename T>
 STK_HD S plane_distance(const S& l, const S& nn, T floor) {
   const T sq = val(nn) > floor ? (val(l) * val(l)) / val(nn) : T(0);
@@ -600,18 +734,57 @@ STK_HD Vec<S> dof(const Args<T>& A, long long i, int arity, int slot, int var0) 
   return r;
 }
 
+// A family whose derivative form spreads a row over the 32 lanes of a warp
+// (kernels N and O) declares `static constexpr bool WARP_ROWS = true`, a
+// scratch type `Row<T>` shared by the lanes of a row, and
+// `warp_eval<T>(A, i, lane, row)`, written as steps STK_LANES(step) that
+// each lane runs before the next step starts: on the card a __syncwarp()
+// follows each step; the g++ host build runs a step for lanes 0-31 in turn.
+template <typename F, typename = void>
+struct warp_rows {
+  static constexpr bool value = false;
+};
+template <typename F>
+struct warp_rows<F, std::void_t<decltype(F::WARP_ROWS)>> {
+  static constexpr bool value = F::WARP_ROWS;
+};
+#define STK_WARP 32
+#ifdef __CUDA_ARCH__
+#define STK_LANES(step) \
+  do {                  \
+    step;               \
+    __syncwarp();       \
+  } while (0)
+#else
+#define STK_LANES(step)                               \
+  for (int lane = 0; lane < STK_WARP; ++lane) {      \
+    step;                                             \
+  }
+#endif
+
 }  // namespace egh
 
 // One __global__ template serves every family: F::eval<T, D>(args, i) writes
 // row i (D: the derivative form). A thread per element: the dual's
 // registers are the constraint (the wider families spill; their ptxas
-// reports are in chip_smoke's ptxas.txt).
+// reports are in chip_smoke's ptxas.txt). A WARP_ROWS family's derivative
+// form runs egh_warp_kernel instead: a warp per row, STK_ROWS rows a block.
+#define STK_ROWS 4
 #ifdef __CUDACC__
 template <typename F, typename T, bool D>
 __global__ void __launch_bounds__(64) egh_kernel(egh::Args<T> A) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= A.E) return;
   F::template eval<T, D>(A, i);
+}
+// (D is always true: it gives the kernel's symbol the family's ptxas key)
+template <typename F, typename T, bool D>
+__global__ void __launch_bounds__(STK_WARP * STK_ROWS) egh_warp_kernel(egh::Args<T> A) {
+  __shared__ typename F::template Row<T> rows[STK_ROWS];
+  const int w = threadIdx.x / STK_WARP;
+  const long long i = (long long)blockIdx.x * STK_ROWS + w;
+  if (i >= A.E) return;   // the whole warp: a row is a warp's
+  F::template warp_eval<T>(A, i, threadIdx.x % STK_WARP, rows[w]);
 }
 #endif
 
@@ -639,10 +812,12 @@ static int egh_launch(const void* const* p, const double* s, long long E, void* 
   const egh::Args<T> A = egh_args<T>(p, s, E, e, g, H);
   const int threads = 64;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g != nullptr)
-    egh_kernel<F, T, true><<<stk_blocks(E, threads), threads, 0, st>>>(A);
-  else
+  if (g == nullptr)
     egh_kernel<F, T, false><<<stk_blocks(E, threads), threads, 0, st>>>(A);
+  else if constexpr (egh::warp_rows<F>::value)
+    egh_warp_kernel<F, T, true><<<stk_blocks(E, STK_ROWS), STK_WARP * STK_ROWS, 0, st>>>(A);
+  else
+    egh_kernel<F, T, true><<<stk_blocks(E, threads), threads, 0, st>>>(A);
   return stk_launch_status();
 }
 // stk_egh_<name>_f32 / _f64 (ptrs, scalars, E, e, g or null, H or null,

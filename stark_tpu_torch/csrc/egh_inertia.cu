@@ -65,16 +65,20 @@ struct FamPrescribed {
   }
 };
 
-// ---- flat-rest DiscreteShells: 0.5 k sum_d x_d^T Q x_d, Q = coef K K^T,
-// expanded as the twin's x1^T Q x1 (the factored coef (K . x_d)^2 rounds
-// the float64 cloth apart from the CPU port's: 1.05e-8 m in 3 steps on an
-// H100, over tests/test_torch_cuda.py's 1e-8). In float32 the positions
-// are taken relative to node 0 first: K sums to zero, so Q ignores a
-// common shift, and the expanded form's rounding then scales with the
-// stencil's size rather than its distance from the origin (with absolute
-// positions, the nearly flat 64x64 cloth's e lay at 0.96-1.35x the f32
-// rule of chip_smoke.py phase 17 against the f32 twin, as the CG's
-// rounding moved the state); float64 keeps the twin's absolute form;
+// ---- flat-rest DiscreteShells: 0.5 k sum_d x_d^T Q x_d, Q = coef K K^T.
+// Float64 expands it as the twin's x1^T Q x1 (the factored coef (K . x_d)^2
+// of absolute positions rounded the float64 cloth apart from the CPU
+// port's: 1.05e-8 m in 3 steps on an H100, over tests/test_torch_cuda.py's
+// 1e-8). Float32 takes the factored form relative to node 0,
+//     K . x_d = sum_{b >= 1} K_b (x_b,d - x_0,d) + (sum K) x_0,d,
+// the same function for any K: its rounding scales with the stencil's size
+// rather than its distance from the origin (the expanded form of absolute
+// positions put the nearly flat 64x64 cloth's e at 0.96-1.35x the f32 rule
+// of chip_smoke.py phase 17), and sum K, zero on a cloth's Bergou stencils
+// up to the rounding of K, is summed in double, so its term keeps what is
+// left of it. (Dropping that term, as a bare shift to node 0 does, is
+// another function where sum K is not zero: 7.8e4 times the f32 rule on
+// tools/egh_cases' seeded rows.)
 // p = nodes (E, 4), bergou_K (E, 4), bergou_coef, stiffness, x0, dt ----
 struct FamShellsFlat {
   template <typename T, bool D>
@@ -92,17 +96,23 @@ struct FamShellsFlat {
       x[n][1] = x0.y + dt * u.y;
       x[n][2] = x0.z + dt * u.z;
     }
-    if (sizeof(T) == 4) {
-      for (int n = 3; n >= 0; --n)
-        for (int d = 0; d < 3; ++d) x[n][d] = x[n][d] - x[0][d];
-    }
-    // sum over the coordinates d of x_d^T (Q x_d), the inner sums in node order
     S acc = konst<S>(T(0));
-    for (int d = 0; d < 3; ++d) {
-      for (int a = 0; a < 4; ++a) {
-        S qx = (coef * (K[a] * K[0])) * x[0][d];
-        for (int b = 1; b < 4; ++b) qx = qx + (coef * (K[a] * K[b])) * x[b][d];
-        acc = acc + x[a][d] * qx;
+    if constexpr (sizeof(T) == 4) {
+      const T ksum = T(((double(K[0]) + double(K[1])) + double(K[2])) + double(K[3]));
+      for (int d = 0; d < 3; ++d) {
+        S kx = K[1] * (x[1][d] - x[0][d]);
+        for (int b = 2; b < 4; ++b) kx = kx + K[b] * (x[b][d] - x[0][d]);
+        kx = kx + ksum * x[0][d];
+        acc = acc + (coef * kx) * kx;
+      }
+    } else {
+      // sum over the coordinates d of x_d^T (Q x_d), the inner sums in node order
+      for (int d = 0; d < 3; ++d) {
+        for (int a = 0; a < 4; ++a) {
+          S qx = (coef * (K[a] * K[0])) * x[0][d];
+          for (int b = 1; b < 4; ++b) qx = qx + (coef * (K[a] * K[b])) * x[b][d];
+          acc = acc + x[a][d] * qx;
+        }
       }
     }
     write_dual(A, i, (T(0.5) * fp(A, 3)[i]) * acc);

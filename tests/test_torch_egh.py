@@ -221,6 +221,44 @@ def test_f32_rule_fails_a_planted_wrong_row(name, barrier, part):
         assert planted < 2 * float(torch.maximum(own, spread).max())
 
 
+# kernel P's flat shells and kernels N and O, both barriers for the contact
+# families: the float32 host build against the float32 and float64 twins
+F32_HOST_CASES = [("EnergyBendingFlat", "Cubic")] + \
+    [("contact_" + st, b) for b in ("Cubic", "Log")
+     for st in ("pt_dd", "pt_dr", "pt_rd", "pt_rr", "ee_dd", "ee_dr", "ee_rr")]
+
+
+@pytest.mark.parametrize("name,barrier", F32_HOST_CASES)
+def test_f32_host_build_matches_twins(name, barrier):
+    """The float32 host build of a family's kernel math on its seeded
+    tables passes tools/egh_cases.f32_ratio (<= 1 for e, g and H), the rule
+    the card tests and chip_smoke.py's phase 17 hold the card's float32
+    kernels to. The seeded Bergou K do not sum to zero (a cloth's do, up to
+    rounding), so the flat shells' float32 form must keep the (sum K) x_0
+    term that a shift of the stencil to node 0 drops."""
+    glob, u, conn, rows = make_case(name, sum(map(ord, name + barrier)))
+    fam = _families(stark_tpu_torch, barrier)[name]
+    t = tables_from_numpy({name: {"conn": conn, "rows": rows}})[name]
+    if name == "EnergyBendingFlat":
+        assert np.abs(rows["bergou_K"].sum(axis=1)).max() > 1.0
+    outs, spread = [], None
+    for dtype in (torch.float64, torch.float32):
+        rw = {k: v.to(dtype) if v.is_floating_point() else v for k, v in t["rows"].items()}
+        gl = {k: torch.as_tensor(v, dtype=dtype) for k, v in glob.items()}
+        ut = torch.as_tensor(u, dtype=dtype)
+        outs.append(egh.plain(fam.energy_fn, ut, t["conn"], rw, gl))
+        if dtype == torch.float64:
+            spread = f64_spread(fam.energy_fn, ut, t["conn"], rw, gl)
+        else:
+            out32 = fam.kernel(ut, t["conn"], rw, gl, True, host=True)
+            assert torch.equal(fam.kernel(ut, t["conn"], rw, gl, False, host=True), out32[0])
+    twin64, twin32 = outs
+    for part, k, t32, t64, s in zip("egH", out32, twin32, twin64, spread):
+        ratio = f32_ratio(k, t32, t64, part, s)[0]
+        assert ratio <= 1.0, f"{name} ({barrier}) {part}: f32 err/tol {ratio:.3g}"
+    assert torch.equal(out32[2], out32[2].transpose(1, 2))
+
+
 def test_wrapper_takes_the_twin_on_the_cpu():
     """On CPU tensors a family evaluates through its twin, counted nowhere;
     a kernel launcher refuses CPU tensors outside the host build."""
