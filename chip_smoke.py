@@ -35,9 +35,10 @@ Phases (every failure propagates; nothing is caught):
      friction: kernels I, J and Q besides A-H), print bench.py's fields and the
      live friction rows, check it (finite, friction rows, no intersection,
      every kernel of the path launched), then hold kernels I and J against
-     their twins on the CPU in f32 and f64 at the final state and time them
-     (in a child process, `chip_smoke.py --friction OUT`, started with
-     phase 9's);
+     their twins on the CPU in f32 and f64 at the final state and time them,
+     printing I's exact-distance share (the allowed pairs its box cull
+     passes) and pricing its bound from this run's kept pairs (in a child
+     process, `chip_smoke.py --friction OUT`, started with phase 9's);
  11. print the Newton iterations of the scenes whose CG products run
      kernel B (phases 7, 10, 12, 14, 15), the kernels' JSON line, the card
      line, and the result line;
@@ -53,7 +54,8 @@ Phases (every failure propagates; nothing is caught):
      against the engine's twin path (every kernel's twin on the CPU, on
      the card's inputs), and the family pair
      sets of the grid against those of a dense-mode engine at the same
-     state; time K, L, their twins, and ee_dd's grid path against the dense
+     state; time K (also step by step, CUDA events between its launches),
+     L, their twins, and ee_dd's grid path against the dense
      ball path (phases 12 and 13 run in a child process,
      `chip_smoke.py --scale64 OUT`, started with phase 9's); and, at the same
      state, kernel F's oracle ball pairs from the card's torch glue against
@@ -82,9 +84,9 @@ Phases (every failure propagates; nothing is caught):
      contact refresh against the engine's twin path; kernel A's direct site
      on phase 15's DirectLLT input, bit for bit against its twin and the
      former design (CSR, segmented sum, permute), timed against both and
-     the fill plus index_add_ yardstick; time them and the Cholesky (phases 14
-     and 16 run in a child process, `chip_smoke.py --staged OUT`, started
-     with phase 9's);
+     the fill plus index_add_ yardstick; time them and the Cholesky, and one
+     whole contact refresh (phases 14 and 16 run in a child process,
+     `chip_smoke.py --staged OUT`, started with phase 9's);
  17. kernels M-W, the element energies, gradients and Hessians: phases 4,
      7, 10, 12, 14 and 18-23 assert that every family of their path
      launched its kernel (e, g, H and the value-only form) and that no
@@ -1074,16 +1076,18 @@ def friction_kernel_checks(sim):
             mu_ok = mu_g[meshes[0].long()][:, meshes[-1].long()] != 0
             keep = allowed.bool() & mu_ok
             n_eval = int(keep.sum())
-            ops_i = ops_of(region_hist(kind, args[0], table, keep, ptol), DIST_OPS[kind],
-                           REGION_OPS[kind])
-            bnd = bound_ms(nq * nt + nbytes(args[0], table, *meshes, mu_g, th_g)
-                           + cap * (8 + 2 * el) + 4, ops_i, dtype)
+            rec = pair_list_record("friction", kind, args, out, keep, n, cap, ptol,
+                                   nq * nt + nbytes(args[0], table, *meshes, mu_g, th_g)
+                                   + cap * (8 + 2 * el) + 4, dtype)
             results[f"friction_pairs[{kind}]"] = dict(
                 max_abs_err=err_i, ms=graph_ms(lambda: kern(*args)),
                 plain_ms=events_ms(lambda: plain(*args), iters=3),
-                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
-                shape=f"{nq}x{nt} grid, {n_eval} pairs evaluated "
-                      f"({ops_i / max(n_eval, 1):.1f} ops each), {n} kept, cap {cap}")
+                library_ms=None, **rec,
+                shape=f"{nq}x{nt} grid, {n_eval} allowed pairs with mu != 0, "
+                      f"{rec['exact_tests']} reach the exact distance, {n} kept, cap {cap}")
+            log(f"  friction_pairs[{kind}] {results[f'friction_pairs[{kind}]']['ms']:.4f} ms"
+                f", exact-distance share {rec['exact_share']:.4%} "
+                f"({rec['exact_tests']} of {n_eval})")
             # J (the family with the most rows): vertices, table, mesh ids
             # and mu read once, each active row's two indices, d and dhat,
             # and every row's region, anchor, T, mu and fn written
@@ -1233,6 +1237,78 @@ class twins_on_cpu:
         self.eng.kern = self.saved
 
 
+def pair_list_record(mode, kind, args, out, allowed_keep, n, cap, ptol, nbytes_i,
+                     dtype) -> dict:
+    """Kernel I's bound from this run's data (the bytes read and written
+    once; the exact distance of the pairs kept, priced by region), beside the
+    every-allowed-pair figure, and the exact-distance share: the allowed
+    pairs with a nonzero mu that pass the box cull, over all of them, as
+    the g++ build of the same source counts them on the same inputs."""
+    from stark_tpu_torch.ops import friction_pairs as fp
+
+    V, table, allowed = args[0], args[1], args[2]
+    nq, nt = allowed.shape
+    if kind == "pt":
+        meshes, rest = (args[3], args[4]), args[5:]
+    else:
+        meshes, rest = (args[3],), args[4:]
+    mu = rest[0] if mode == "friction" else None
+    th = rest[-2] if kind == "pt" else rest[-3]
+    cpu = lambda x: None if x is None else x.cpu()
+    _lists, n_exact = fp.host_lists(mode, kind, cpu(V), cpu(table), cpu(allowed),
+                                    tuple(cpu(m) for m in meshes), cpu(mu), cpu(th), 1,
+                                    ptol if kind == "ee" else None)
+    n_keep = min(n, cap)
+    kept = torch.zeros((nq, nt), dtype=torch.bool, device=V.device)
+    kept[out[0][:n_keep].long(), out[1][:n_keep].long()] = True
+    ops_k = ops_of(region_hist(kind, V, table, kept, ptol), DIST_OPS[kind], REGION_OPS[kind])
+    ops_all = ops_of(region_hist(kind, V, table, allowed_keep, ptol), DIST_OPS[kind],
+                     REGION_OPS[kind])
+    bnd = bound_ms(nbytes_i, ops_k, dtype)
+    n_allowed = int(allowed_keep.sum())
+    return dict(bound_ms=bnd[0], bound_by=bnd[1],
+                bound_ms_every_pair=bound_ms(nbytes_i, ops_all, dtype)[0],
+                exact_tests=n_exact, exact_share=n_exact / max(n_allowed, 1))
+
+
+def grid_build_split_ms(tc, tr, max_qr, h, ins_slots, table_size, iters: int = 20):
+    """Kernel K's mean milliseconds per step over `iters` eager calls of
+    its timing entry point (stk_grid_build_split_*, a CUDA event between
+    the steps; not counted as a launch): ({step: ms}, the outputs)."""
+    import ctypes
+
+    from stark_tpu_torch.ops import build
+
+    dev = tc.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    max_qr = max_qr.reshape(()).to(tc.dtype).contiguous()
+    h = h.reshape(()).to(tc.dtype).contiguous()
+    T = tc.shape[0]
+    out = (torch.empty((table_size + 1,), **i32), torch.empty((T * ins_slots,), **i32),
+           torch.empty((), **i32))
+    scratch = torch.empty((build.entry("stk_grid_build_scratch_ints")(
+        T, ins_slots, table_size),), **i32)
+    passes = 1 if table_size <= 256 else ((table_size - 1).bit_length() + 7) // 8
+    names = ("memsets", "cells", "scan targets", "expand", "scan buckets") + tuple(
+        f"pass {p} {w}" for p in range(passes) for w in ("hist", "scan", "scatter"))
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    for e in events:
+        e.record()    # creates the CUDA event
+    handles = (ctypes.c_void_p * len(events))(*[e.cuda_event for e in events])
+    fn = build.entry("stk_grid_build_split", tc.dtype)
+    args = (tc.contiguous().data_ptr(), tr.contiguous().data_ptr(), T, max_qr.data_ptr(),
+            h.data_ptr(), ins_slots, table_size, *(x.data_ptr() for x in out),
+            scratch.data_ptr(), build.stream_ptr(dev), handles)
+    total = [0.0] * len(names)
+    for it in range(iters + 2):
+        build.check_status("grid_build split", fn(*args))
+        torch.cuda.synchronize()
+        if it >= 2:
+            for k in range(len(names)):
+                total[k] += events[k].elapsed_time(events[k + 1])
+    return {n: total[k] / iters for k, n in enumerate(names)}, out
+
+
 def same_tree(a, b, what):
     """Two nested dicts/tuples of tensors are equal element for element."""
     if isinstance(a, dict):
@@ -1333,11 +1409,15 @@ def scale64_checks(sim):
         # the filled slots only: the padding past offsets[-1] is read by no one
         bnd = bound_ms(nbytes(mb, tr) + 4 * (tsz + 1) + 4 * int(out_k[0][-1]) + 4,
                        0.0, dtype)
+        split, out_s = grid_build_split_ms(*k_args)
+        same_tree(tuple(out_s), tuple(ref_k), "grid_build (split launch)")
         results["grid_build"] = dict(
             max_abs_err=0.0, ms=graph_ms(lambda: gb.grid_build(*k_args)),
             plain_ms=events_ms(lambda: gb.grid_build_plain(*k_args), iters=5),
-            library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
+            library_ms=None, bound_ms=bnd[0], bound_by=bnd[1], split_ms=split,
             shape=f"ee_dd: {T} targets, {ins} slots, table {tsz}")
+        log(f"  grid_build {results['grid_build']['ms']:.4f} ms; by step (events, eager): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
         qb = bp._hash_cells(bp._cell_of(ma, h), tsz).long()
         offs = out_k[0].long()
         scanned = int(torch.clamp_max(offs[qb + 1] - offs[qb], occ).sum())
@@ -1919,7 +1999,8 @@ def staged_kernel_checks(sim):
         eps = torch.finfo(dtype).eps
         for kind, (kern, plain) in kinds.items():
             args = grid(kind, dtype, DEVICE)
-            out = [x.cpu() for x in kern(*args)]
+            out_card = kern(*args)
+            out = [x.cpu() for x in out_card]
             ref = plain(*grid(kind, dtype, "cpu"))
             torch.cuda.synchronize()
             cap = args[6] if kind == "pt" else args[5]
@@ -1963,12 +2044,11 @@ def staged_kernel_checks(sim):
             meshes = args[3:5] if kind == "pt" else args[3:4]
             nq, nt = allowed.shape
             keep = allowed.bool()
-            ops = ops_of(region_hist(kind, args[0], table, keep, ptol), DIST_OPS[kind],
-                         REGION_OPS[kind])
             el = args[0].element_size()
-            bnd = bound_ms(nq * nt + nbytes(args[0], table, *meshes, args[-2 if kind == "pt"
-                                                                           else -3])
-                           + cap * (8 + 2 * el) + 4, ops, dtype)
+            rec = pair_list_record("contact", kind, args, out_card, keep, n_k, cap, ptol,
+                                   nq * nt + nbytes(args[0], table, *meshes,
+                                                    args[-2 if kind == "pt" else -3])
+                                   + cap * (8 + 2 * el) + 4, dtype)
             # the friction mode of the same kernel on the same inputs with
             # mu = 1 everywhere evaluates the same pairs: timed beside it
             mu1 = torch.ones((len(contact.contact_thicknesses),) * 2, dtype=dtype,
@@ -1980,12 +2060,13 @@ def staged_kernel_checks(sim):
             results[f"contact_pairs[{kind}]"] = dict(
                 max_abs_err=err, ms=graph_ms(lambda: kern(*args)),
                 plain_ms=events_ms(lambda: plain(*args), iters=3),
-                library_ms=None, bound_ms=bnd[0], bound_by=bnd[1], left_out=left_out,
-                shape=f"{nq}x{nt} grid, {int(keep.sum())} pairs evaluated "
-                      f"({ops / max(int(keep.sum()), 1):.1f} ops each), {n} kept, cap {cap}")
-            log(f"  contact_pairs[{kind}] {results[f'contact_pairs[{kind}]']['ms']:.4f} ms, "
-                f"its friction mode (mu = 1) on the same inputs "
-                f"{info[f'friction_mode_ms[{kind}]']:.4f} ms")
+                library_ms=None, left_out=left_out, **rec,
+                shape=f"{nq}x{nt} grid, {int(keep.sum())} allowed pairs, "
+                      f"{rec['exact_tests']} reach the exact distance, {n} kept, cap {cap}")
+            log(f"  contact_pairs[{kind}] {results[f'contact_pairs[{kind}]']['ms']:.4f} ms"
+                f", exact-distance share {rec['exact_share']:.4%} "
+                f"({rec['exact_tests']} of {int(keep.sum())}); its friction mode (mu = 1) "
+                f"on the same inputs {info[f'friction_mode_ms[{kind}]']:.4f} ms")
 
     # the whole refresh (both kinds, routing, family tables, the cut to the
     # live rows) against the engine's twin path, f32
@@ -1997,6 +2078,9 @@ def staged_kernel_checks(sim):
     assert counts == counts_c, (counts, counts_c)
     same_tree(tables, tables_c, "refresh_contacts tables")
     info["refresh_counts"] = counts
+    # ms per contact refresh (both kinds, routing and tables), from the host
+    info["refresh_ms"] = events_ms(lambda: eng._contacts_fn(Vs32, Vr32, th), iters=20)
+    log(f"  one contact refresh {info['refresh_ms']:.4f} ms")
     log("  refresh_contacts (dense branch) equals the twin path's: "
         + ", ".join(f"{k}={v}" for k, v in sorted(counts.items())))
 
@@ -3374,6 +3458,8 @@ KERNELS = [
     ("contact_pairs[ee]", "stark_tpu_torch/csrc/friction_pairs.cu",
      "stark_tpu/models/interactions/contact_engine.py:1031"),
 ]
+# the kernels line's optional keys of a record
+EXTRA_KEYS = ("left_out", "exact_tests", "exact_share", "bound_ms_every_pair", "split_ms")
 CONTACT_KERNELS = ("compact", "ball_wide", "pt_ee_distance[pt]",
                    "pt_ee_distance[ee]", "segment_triangle_any")
 FRICTION_KERNELS = ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[pt]",
@@ -4047,7 +4133,7 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
-                        **({"left_out": r["left_out"]} if "left_out" in r else {})})
+                        **{k: r[k] for k in EXTRA_KEYS if k in r}})
     for name, replaces in (("graph_ctl", "stark_tpu/solver/fused.py:593"),
                            ("pcg_step[1]", "stark_tpu/solver/pcg.py:99"),
                            ("pcg_step[2]", "stark_tpu/solver/pcg.py:99")):

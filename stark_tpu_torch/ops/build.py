@@ -15,10 +15,12 @@ The element-derivative kernels M-W (`egh_*.cu`) build with `-fmad=false`:
 their value-only and derivative forms must round the energy alike, bit for
 bit. Their element math also builds as plain C++17 with g++
 (`host_library`, CPU only, for the tests and for the operation counts
-`chip_smoke.py` prices a bound with). Kernel Y (`pcg_step.cu`) builds with
-`-fmad=false` too, so that its vector updates round as its plain version's;
-it and kernel X (`graph_ctl.cu`, the CUDA-graph loop control) are left out
-of the g++ build.
+`chip_smoke.py` prices a bound with), and so does kernel I
+(`host_pairs_library`, its tiles' lanes in turn, for its CPU test and the
+exact-distance share `chip_smoke.py` prints). Kernel Y (`pcg_step.cu`)
+builds with `-fmad=false` too, so that its vector updates round as its
+plain version's; it and kernel X (`graph_ctl.cu`, the CUDA-graph loop
+control) are left out of the g++ build.
 
 `launches` counts kernel launches by kernel entry point (and, for the
 segmented reduce, the compaction and kernels M-W, by call site: M-W per
@@ -75,6 +77,7 @@ func_on_card: collections.Counter = collections.Counter()
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _host_lib: Optional[ctypes.CDLL] = None
+_host_pairs_lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 
 _P = ctypes.c_void_p
@@ -101,6 +104,19 @@ _SIGNATURES = {
     "stk_pt_distance": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "stk_ee_distance": [_P, _P, _P, _P, _I, _D, _P, _P, _P, _P, _P],
     "stk_segment_triangle_any": [_P, _P, _P, _P, _P, _I, _P, _D, _P, _P, _P],
+    "stk_friction_rows_pt": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                             _P, _P, _P, _P, _P, _P],
+    "stk_friction_rows_ee": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _D,
+                             _P, _P, _P, _P, _P, _P],
+    "stk_grid_build": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # kernel K with a CUDA event recorded between its steps (the split timing)
+    "stk_grid_build_split": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
+}
+# kernel I (the last argument the stream; the g++ build's stk_host_ forms
+# take, in its place, the cull switch and a pointer to the exact-test count)
+PAIR_SIGNATURES = {
     "stk_friction_pairs_pt": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _P, _P,
                               _P, _P, _P, _P, _P],
     "stk_friction_pairs_ee": [_P, _P, _I, _P, _P, _P, _P, _I, _D, _I, _P, _P, _P,
@@ -109,14 +125,11 @@ _SIGNATURES = {
                              _P, _P],
     "stk_contact_pairs_ee": [_P, _P, _I, _P, _P, _P, _D, _I, _P, _P, _P, _P, _P, _P,
                              _P],
-    "stk_friction_rows_pt": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I,
-                             _P, _P, _P, _P, _P, _P],
-    "stk_friction_rows_ee": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I, _D,
-                             _P, _P, _P, _P, _P, _P],
-    "stk_grid_build": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
-                        _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
+_SIGNATURES.update(PAIR_SIGNATURES)
+# scratch sizes (bytes or ints) that a launcher computes from its shapes
+_SIZES = {"stk_pair_lists_scratch_bytes": [_I, _I, _I, _I],
+          "stk_grid_build_scratch_ints": [_I, _I, _I]}
 # kernels M-W: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
 EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "rb_linear", "rb_angular", "global_points", "global_directions",
@@ -269,11 +282,48 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
+        for name, args in _SIZES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_longlong
         info["path"] = lib_path
         build_info.clear()
         build_info.update(info)
         _lib = lib
         return _lib
+
+
+def _host_build(srcs, stem: str) -> str:
+    """Compile `srcs` with g++ (one process each) into
+    build/lib<stem>_<hash>.so, unless it is there; returns its path."""
+    _cu, hdr = _sources()
+    lib_path = os.path.join(BUILD_DIR, "lib%s_%s.so" % (stem, _digest(srcs + hdr,
+                                                                       HOST_FLAGS)))
+    if os.path.exists(lib_path):
+        return lib_path
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: the host builds of the kernels need a "
+                           "C++17 compiler")
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in srcs:
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [gxx, *[f for f in HOST_FLAGS if f != "-shared"], "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        for src, _obj, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                raise RuntimeError("g++ failed for %s:\n%s" % (src, out.decode(errors="replace")))
+        tmp_lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run([gxx, "-shared", "-o", tmp_lib, *[o for _s, o, _p in procs]],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        if link.returncode != 0:
+            raise RuntimeError("g++ link failed:\n" + link.stdout.decode(errors="replace"))
+        os.replace(tmp_lib, lib_path)
+    return lib_path
 
 
 def host_library() -> ctypes.CDLL:
@@ -287,38 +337,9 @@ def host_library() -> ctypes.CDLL:
     with _lock:
         if _host_lib is not None:
             return _host_lib
-        cu, hdr = _sources()
+        cu, _hdr = _sources()
         srcs = [s for s in cu if os.path.basename(s).startswith(NO_FMA_PREFIX)]
-        lib_path = os.path.join(BUILD_DIR, "libstark_egh_host_%s.so"
-                                % _digest(srcs + hdr, HOST_FLAGS))
-        if not os.path.exists(lib_path):
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: the host build of kernels "
-                                   "M-W needs a C++17 compiler")
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-                procs = []
-                for src in srcs:
-                    obj = os.path.join(tmp, os.path.basename(src) + ".o")
-                    cmd = [gxx, *[f for f in HOST_FLAGS if f != "-shared"],
-                           "-c", src, "-o", obj]
-                    procs.append((src, obj, subprocess.Popen(
-                        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
-                for src, _obj, p in procs:
-                    out, _ = p.communicate()
-                    if p.returncode != 0:
-                        raise RuntimeError("g++ failed for %s:\n%s" % (
-                            src, out.decode(errors="replace")))
-                tmp_lib = os.path.join(tmp, "lib.so")
-                link = subprocess.run([gxx, "-shared", "-o", tmp_lib,
-                                       *[o for _s, o, _p in procs]],
-                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
-                if link.returncode != 0:
-                    raise RuntimeError("g++ link failed:\n" + link.stdout.decode(
-                        errors="replace"))
-                os.replace(tmp_lib, lib_path)
-        lib = ctypes.CDLL(lib_path)
+        lib = ctypes.CDLL(_host_build(srcs, "stark_egh_host"))
         for f in EGH_FAMILIES:
             for suffix in ("_f32", "_f64"):
                 fn = getattr(lib, "stk_host_egh_" + f + suffix)
@@ -326,6 +347,43 @@ def host_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
         _host_lib = lib
         return _host_lib
+
+
+def host_pairs_library() -> ctypes.CDLL:
+    """Kernel I (csrc/friction_pairs.cu) built as plain C++17 with g++ into
+    build/libstark_pairs_host_<hash>.so: entry points stk_host_<mode>_pairs_
+    <kind>_f32/_f64 with the card's arguments, the stream replaced by the
+    cull switch (int) and the exact-test count (int*), which run the tiles'
+    lanes in turn on the CPU."""
+    global _host_pairs_lib
+    if _host_pairs_lib is not None:
+        return _host_pairs_lib
+    with _lock:
+        if _host_pairs_lib is not None:
+            return _host_pairs_lib
+        lib = ctypes.CDLL(_host_build([os.path.join(CSRC, "friction_pairs.cu")],
+                                      "stark_pairs_host"))
+        for name, args in PAIR_SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name.replace("stk_", "stk_host_", 1) + suffix)
+                fn.argtypes = args[:-1] + [_I, _P]
+                fn.restype = ctypes.c_int
+        fn = lib.stk_pair_lists_scratch_bytes
+        fn.argtypes = _SIZES["stk_pair_lists_scratch_bytes"]
+        fn.restype = ctypes.c_longlong
+        _host_pairs_lib = lib
+        return _host_pairs_lib
+
+
+def host_pairs_entry(name: str, dtype: Optional[torch.dtype] = None):
+    """The host build's counterpart of entry(name, dtype) for kernel I."""
+    lib = host_pairs_library()
+    if dtype is None:
+        return getattr(lib, name)
+    suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    return getattr(lib, name.replace("stk_", "stk_host_", 1) + suffix)
 
 
 def host_entry(name: str, dtype: torch.dtype):

@@ -15,8 +15,17 @@ and [ee]) is the same pass without the mu predicate: the dense branch of
 row-major order for the staged solver's per-evaluation contact refresh.
 
 Rows past the count hold zeros. The count stays on the device.
+
+The kernel (see its source) tests a pair's exact distance only where a
+sound box cull cannot reject it. `host_lists` runs the g++ build of the
+same source on the CPU (`build.host_pairs_library`), with the cull or
+without it, and counts the pairs that reach the exact distance: the tests
+hold it against the twins and against itself without the cull.
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -124,9 +133,10 @@ def _outputs(cap, dtype, dev):
             torch.empty((), **i32))
 
 
-def _check(name, V, table, allowed, meshes, mu_mat, th, nq, nt):
-    build.require_cuda(name, V, table, allowed, *meshes, th,
-                       *(() if mu_mat is None else (mu_mat,)))
+def _check(name, V, table, allowed, meshes, mu_mat, th, nq, nt, host):
+    if not host:
+        build.require_cuda(name, V, table, allowed, *meshes, th,
+                           *(() if mu_mat is None else (mu_mat,)))
     if table.dtype != torch.int32 or any(m.dtype != torch.int32 for m in meshes):
         raise TypeError(f"{name}: the primitive table and mesh ids must be int32")
     if allowed.dtype != torch.uint8 or allowed.shape != (nq, nt):
@@ -137,6 +147,70 @@ def _check(name, V, table, allowed, meshes, mu_mat, th, nq, nt):
         raise ValueError(f"{name}: the pair grid exceeds the int32 range")
 
 
+@functools.lru_cache(maxsize=None)
+def _scratch_bytes(host: bool, nq: int, nt: int, kind: str, el: int) -> int:
+    lib = build.host_pairs_entry if host else build.entry
+    return lib("stk_pair_lists_scratch_bytes")(nq, nt, int(kind == "ee"), el)
+
+
+def _call(mode, kind, V, table, allowed, meshes, mu_mat, th, cap, ptol, host):
+    """The entry point's name, its arguments but the last (the stream, or
+    the host build's cull switch and count), the outputs, and the tensors
+    the arguments point to (kept alive until the call returns)."""
+    name = f"{mode}_pairs_{kind}"
+    V, th = V.contiguous(), th.contiguous()
+    table, allowed = table.contiguous(), allowed.contiguous()
+    meshes = [m.contiguous() for m in meshes]
+    if mu_mat is not None:
+        mu_mat = mu_mat.contiguous()
+    nq = V.shape[0] if kind == "pt" else table.shape[0]
+    nt = table.shape[0]
+    _check(name, V, table, allowed, meshes, mu_mat, th, nq, nt, host)
+    scratch = torch.empty((_scratch_bytes(host, nq, nt, kind, V.element_size()),),
+                          dtype=torch.uint8, device=V.device)
+    outs = _outputs(cap, V.dtype, V.device)
+    args = [V.data_ptr(), table.data_ptr()]
+    args += [nq, nt] if kind == "pt" else [nt]
+    args += [allowed.data_ptr(), *(m.data_ptr() for m in meshes)]
+    if mu_mat is not None:
+        args += [mu_mat.data_ptr()]
+    args += [th.data_ptr()]
+    if mu_mat is not None:
+        args += [mu_mat.shape[0]]
+    if kind == "ee":
+        args += [float(nph._parallel_tol(V.dtype) if ptol is None else ptol)]
+    args += [cap, *(x.data_ptr() for x in outs), scratch.data_ptr()]
+    return name, args, outs, (V, table, allowed, meshes, mu_mat, th, scratch)
+
+
+def launch(mode: str, kind: str, V, table, allowed, meshes, mu_mat, th, cap: int,
+           ptol=None):
+    """One launch of kernel I on the card (mode "friction" or "contact", kind
+    "pt" or "ee"; mu_mat None in the contact mode): (q, t, d, dhat, count)."""
+    name, args, outs, _keep = _call(mode, kind, V, table, allowed, meshes, mu_mat, th,
+                                    cap, ptol, False)
+    rc = build.entry("stk_" + name, V.dtype)(*args, build.stream_ptr(V.device))
+    build.check_status(name, rc)
+    build.count_launch(f"{mode}_pairs[{kind}]")
+    return outs
+
+
+def host_lists(mode: str, kind: str, V, table, allowed, meshes, mu_mat, th, cap: int,
+               ptol=None, cull: bool = True):
+    """The g++ build of kernel I on CPU tensors (launch's arguments):
+    (q, t, d, dhat, count) and the number of allowed pairs with a nonzero mu
+    that took the exact test (all of them with cull=False)."""
+    if any(x.device.type != "cpu" for x in (V, table, allowed, th)):
+        raise ValueError(f"{mode}_pairs_{kind}: the host build takes CPU tensors")
+    name, args, outs, _keep = _call(mode, kind, V, table, allowed, meshes, mu_mat, th,
+                                    cap, ptol, True)
+    n_exact = ctypes.c_int(0)
+    rc = build.host_pairs_entry("stk_" + name, V.dtype)(*args, int(cull),
+                                                         ctypes.byref(n_exact))
+    build.check_status(name, rc)
+    return outs, n_exact.value
+
+
 def friction_pairs_pt(V, tris, allowed, p_mesh, t_mesh, mu_mat, th, cap: int):
     """(q, t (cap,) int32, d, dhat (cap,), count () int32) of the PT grid:
     points V (Np, 3) against triangles tris (Nt, 3) int32 over V; allowed
@@ -144,19 +218,7 @@ def friction_pairs_pt(V, tris, allowed, p_mesh, t_mesh, mu_mat, th, cap: int):
     and th (M,) in V's dtype."""
     if V.device.type == "cpu":
         return friction_pairs_pt_plain(V, tris, allowed, p_mesh, t_mesh, mu_mat, th, cap)
-    V, mu_mat, th = V.contiguous(), mu_mat.contiguous(), th.contiguous()
-    Np, Nt = V.shape[0], tris.shape[0]
-    _check("friction_pairs_pt", V, tris, allowed, (p_mesh, t_mesh), mu_mat, th, Np, Nt)
-    q, t, d, dhat, count = _outputs(cap, V.dtype, V.device)
-    scratch = torch.empty((2 * max(Np, 1),), dtype=torch.int32, device=V.device)
-    rc = build.entry("stk_friction_pairs_pt", V.dtype)(
-        V.data_ptr(), tris.data_ptr(), Np, Nt, allowed.data_ptr(), p_mesh.data_ptr(),
-        t_mesh.data_ptr(), mu_mat.data_ptr(), th.data_ptr(), mu_mat.shape[0], cap,
-        q.data_ptr(), t.data_ptr(), d.data_ptr(), dhat.data_ptr(), count.data_ptr(),
-        scratch.data_ptr(), build.stream_ptr(V.device))
-    build.check_status("friction_pairs_pt", rc)
-    build.count_launch("friction_pairs[pt]")
-    return q, t, d, dhat, count
+    return launch("friction", "pt", V, tris, allowed, (p_mesh, t_mesh), mu_mat, th, cap)
 
 
 def friction_pairs_ee(V, edges, allowed, e_mesh, mu_mat, th, cap: int, ptol=None):
@@ -166,21 +228,7 @@ def friction_pairs_ee(V, edges, allowed, e_mesh, mu_mat, th, cap: int, ptol=None
     relative parallel cutoff (None: the dtype default)."""
     if V.device.type == "cpu":
         return friction_pairs_ee_plain(V, edges, allowed, e_mesh, mu_mat, th, cap, ptol)
-    V, mu_mat, th = V.contiguous(), mu_mat.contiguous(), th.contiguous()
-    Ne = edges.shape[0]
-    _check("friction_pairs_ee", V, edges, allowed, (e_mesh,), mu_mat, th, Ne, Ne)
-    if ptol is None:
-        ptol = nph._parallel_tol(V.dtype)
-    a, b, d, dhat, count = _outputs(cap, V.dtype, V.device)
-    scratch = torch.empty((2 * max(Ne, 1),), dtype=torch.int32, device=V.device)
-    rc = build.entry("stk_friction_pairs_ee", V.dtype)(
-        V.data_ptr(), edges.data_ptr(), Ne, allowed.data_ptr(), e_mesh.data_ptr(),
-        mu_mat.data_ptr(), th.data_ptr(), mu_mat.shape[0], float(ptol), cap,
-        a.data_ptr(), b.data_ptr(), d.data_ptr(), dhat.data_ptr(), count.data_ptr(),
-        scratch.data_ptr(), build.stream_ptr(V.device))
-    build.check_status("friction_pairs_ee", rc)
-    build.count_launch("friction_pairs[ee]")
-    return a, b, d, dhat, count
+    return launch("friction", "ee", V, edges, allowed, (e_mesh,), mu_mat, th, cap, ptol)
 
 
 def contact_pairs_pt(V, tris, allowed, p_mesh, t_mesh, th, cap: int):
@@ -189,18 +237,7 @@ def contact_pairs_pt(V, tris, allowed, p_mesh, t_mesh, th, cap: int):
     row-major order; the arguments are friction_pairs_pt's without mu."""
     if V.device.type == "cpu":
         return contact_pairs_pt_plain(V, tris, allowed, p_mesh, t_mesh, th, cap)
-    V, th = V.contiguous(), th.contiguous()
-    Np, Nt = V.shape[0], tris.shape[0]
-    _check("contact_pairs_pt", V, tris, allowed, (p_mesh, t_mesh), None, th, Np, Nt)
-    q, t, d, dhat, count = _outputs(cap, V.dtype, V.device)
-    scratch = torch.empty((2 * max(Np, 1),), dtype=torch.int32, device=V.device)
-    rc = build.entry("stk_contact_pairs_pt", V.dtype)(
-        V.data_ptr(), tris.data_ptr(), Np, Nt, allowed.data_ptr(), p_mesh.data_ptr(),
-        t_mesh.data_ptr(), th.data_ptr(), cap, q.data_ptr(), t.data_ptr(), d.data_ptr(),
-        dhat.data_ptr(), count.data_ptr(), scratch.data_ptr(), build.stream_ptr(V.device))
-    build.check_status("contact_pairs_pt", rc)
-    build.count_launch("contact_pairs[pt]")
-    return q, t, d, dhat, count
+    return launch("contact", "pt", V, tris, allowed, (p_mesh, t_mesh), None, th, cap)
 
 
 def contact_pairs_ee(V, edges, allowed, e_mesh, th, cap: int, ptol=None):
@@ -208,17 +245,4 @@ def contact_pairs_ee(V, edges, allowed, e_mesh, th, cap: int, ptol=None):
     arguments without mu)."""
     if V.device.type == "cpu":
         return contact_pairs_ee_plain(V, edges, allowed, e_mesh, th, cap, ptol)
-    V, th = V.contiguous(), th.contiguous()
-    Ne = edges.shape[0]
-    _check("contact_pairs_ee", V, edges, allowed, (e_mesh,), None, th, Ne, Ne)
-    if ptol is None:
-        ptol = nph._parallel_tol(V.dtype)
-    a, b, d, dhat, count = _outputs(cap, V.dtype, V.device)
-    scratch = torch.empty((2 * max(Ne, 1),), dtype=torch.int32, device=V.device)
-    rc = build.entry("stk_contact_pairs_ee", V.dtype)(
-        V.data_ptr(), edges.data_ptr(), Ne, allowed.data_ptr(), e_mesh.data_ptr(),
-        th.data_ptr(), float(ptol), cap, a.data_ptr(), b.data_ptr(), d.data_ptr(),
-        dhat.data_ptr(), count.data_ptr(), scratch.data_ptr(), build.stream_ptr(V.device))
-    build.check_status("contact_pairs_ee", rc)
-    build.count_launch("contact_pairs[ee]")
-    return a, b, d, dhat, count
+    return launch("contact", "ee", V, edges, allowed, (e_mesh,), None, th, cap, ptol)

@@ -13,7 +13,9 @@ T targets and a table of `table_size` buckets:
              last run;
   max_cells  () int32: the true largest covered-cell count (over ins_slots
              means insertions were dropped: the caller bumps the capacity).
-Nothing leaves the device.
+Nothing leaves the device. The kernel sorts the filled slots stably by
+bucket (an LSD radix sort of the slot list, which is in target order), so
+it gives the twin's order without comparing ids.
 """
 from __future__ import annotations
 
@@ -73,8 +75,8 @@ def grid_build(tc, tr, max_qr, h, ins_slots: int, table_size: int):
     offsets = torch.empty((table_size + 1,), dtype=i32, device=dev)
     tid_sorted = torch.empty((T * ins_slots,), dtype=i32, device=dev)
     max_cells = torch.empty((), dtype=i32, device=dev)
-    # slot buckets, then per-bucket counts and fill cursors
-    scratch = torch.empty((T * ins_slots + 2 * table_size,), dtype=i32, device=dev)
+    scratch = torch.empty((build.entry("stk_grid_build_scratch_ints")(
+        T, ins_slots, table_size),), dtype=i32, device=dev)
     rc = build.entry("stk_grid_build", tc.dtype)(
         tc.data_ptr(), tr.data_ptr(), T, max_qr.data_ptr(), h.data_ptr(),
         ins_slots, table_size, offsets.data_ptr(), tid_sorted.data_ptr(),

@@ -24,7 +24,7 @@ from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
 from stark_tpu_torch.collision import broad_phase as bp
 from stark_tpu_torch.ops import egh
 from stark_tpu_torch.solver import project as tproj
-from stark_tpu_torch.tools import egh_cases as ec
+from stark_tpu_torch.tools import egh_cases as ec, pair_grids
 
 pytestmark = pytest.mark.cuda
 
@@ -594,6 +594,95 @@ def test_contact_pairs_matches_twin(dev, dtype, kind, cap):
                           steps, nt, cap, lambda r, jj: True)
     fplain = fp.friction_pairs_pt_plain if kind == "pt" else fp.friction_pairs_ee_plain
     assert n > int(fplain(V, table, allowed, *meshes, mu, th, cap)[4])
+
+
+@pytest.mark.parametrize("mode", ["contact", "friction"])
+@pytest.mark.parametrize("kind", ["pt", "ee"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_pair_lists_at_the_cull_margin(dev, dtype, kind, mode):
+    """Kernel I on grids whose pairs sit at and just past its box cull's
+    margin (tools/pair_grids.py: long edges far from the origin with points
+    and edges millimetres beside them, slivers, collapsed and parallel
+    primitives, dhat set within the margin of the partner's f64 distance):
+    the card's lists equal bit for bit the g++ host build's of the same
+    source, with its cull and without it (the cull drops no pair the exact
+    test keeps), and the twin's (f64: q, t, dhat and the count exactly, d to
+    an ulp of torch's CPU sqrt; f32: but for rounding-decided pairs); the
+    cull leaves most allowed pairs out of the exact distance."""
+    V, table, allowed, meshes, mu, th, scale = pair_grids.grid(kind, dtype, 0)
+    mu_arg = mu if mode == "friction" else None
+    cap = 10 ** 6
+    host, n_exact = fp.host_lists(mode, kind, V, table, allowed, meshes, mu_arg, th, cap)
+    every, n_every = fp.host_lists(mode, kind, V, table, allowed, meshes, mu_arg, th, cap,
+                                   cull=False)
+    name = f"{mode}_pairs[{kind}]"
+    before = build.launches[name]
+    out = fp.launch(mode, kind, V.to(dev), table.to(dev), allowed.to(dev),
+                    tuple(m.to(dev) for m in meshes),
+                    None if mu_arg is None else mu_arg.to(dev), th.to(dev), cap)
+    torch.cuda.synchronize()
+    assert build.launches[name] == before + 1
+    for a, b, c, what in zip(out, host, every, ("q", "t", "d", "dhat", "count")):
+        assert torch.equal(a.cpu(), b), what
+        assert torch.equal(b, c), what
+    assert 0 < n_exact < n_every // 4
+    plain = {("friction", "pt"): fp.friction_pairs_pt_plain,
+             ("friction", "ee"): fp.friction_pairs_ee_plain,
+             ("contact", "pt"): fp.contact_pairs_pt_plain,
+             ("contact", "ee"): fp.contact_pairs_ee_plain}[(mode, kind)]
+    ref = plain(V, table, allowed, *meshes, *(() if mu_arg is None else (mu,)), th, cap)
+    nt = allowed.shape[1]
+    k_out, k_ref = pair_grids.keys(host, nt), pair_grids.keys(ref, nt)
+    if dtype == torch.float64:
+        assert k_out == k_ref and torch.equal(host[3], ref[3])
+        d, r = host[2], ref[2]
+        assert torch.all((d == r) | (torch.nextafter(r, d) == d))
+    else:
+        only = sorted(set(k_out) ^ set(k_ref))
+        assert all(pair_grids.rounding_decided(kind, V, table, meshes, th, only, nt, scale))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_grid_build_at_the_scale_points_size(dev, dtype):
+    """Kernel K at the 64x64 scale point's size: T = 12,416 targets with 64
+    slots each into a table of 65,536 (two radix passes), exactly the
+    twin's offsets, ids and max_cells."""
+    T = 12416
+    tsz = bp.table_size_for(T)
+    assert tsz == 65536
+    qc, qr, tc, tr = _grid_spheres(np.random.default_rng(T), dtype, 2000, T, -1.0, 1.0)
+    h, mq = bp.pick_cell_size(qr, tr), bp.max_query_radius(qr)
+    ref = gb.grid_build_plain(tc, tr, mq, h, 64, tsz)
+    out = gb.grid_build(tc.to(dev), tr.to(dev), mq.to(dev), h.to(dev), 64, tsz)
+    torch.cuda.synchronize()
+    for x, y, what in zip(out, ref, ("offsets", "tid_sorted", "max_cells")):
+        assert torch.equal(x.cpu(), y), what
+    assert int(ref[0][-1]) > 10 * T
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n_run", [40, 5000, 70000])
+def test_grid_build_long_runs(dev, dtype, n_run):
+    """Kernel K where buckets hold runs of about n_run ids: past a warp
+    (32), past a radix tile (GB_TILE of csrc/grid_build.cu, 4,096 list
+    entries) and past what one block's shared memory could sort (~58,000
+    ids), beside short runs of a spread background; exactly the twin's
+    outputs."""
+    rng = np.random.default_rng(n_run)
+    f = lambda x: torch.as_tensor(x, dtype=dtype)
+    c = np.array([0.3, -0.2, 0.1])
+    tc = f(np.concatenate([c + 1e-4 * rng.uniform(-1, 1, (n_run, 3)),
+                           rng.uniform(-1, 1, (500, 3))]))
+    tr = f(np.concatenate([np.full(n_run, 1e-3), rng.uniform(0.01, 0.05, 500)]))
+    qr = f(rng.uniform(0.01, 0.02, 100))
+    h, mq = bp.pick_cell_size(qr, tr), bp.max_query_radius(qr)
+    tsz = bp.table_size_for(tc.shape[0])
+    ref = gb.grid_build_plain(tc, tr, mq, h, 8, tsz)
+    out = gb.grid_build(tc.to(dev), tr.to(dev), mq.to(dev), h.to(dev), 8, tsz)
+    torch.cuda.synchronize()
+    for x, y, what in zip(out, ref, ("offsets", "tid_sorted", "max_cells")):
+        assert torch.equal(x.cpu(), y), what
+    assert int((ref[0][1:] - ref[0][:-1]).max()) >= 0.9 * n_run
 
 
 def _pt_row_geometry(rng, n):
