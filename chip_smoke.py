@@ -25,7 +25,8 @@ Phases (every failure propagates; nothing is caught):
      intersection, every kernel of the path launched;
   8. hold kernels E-H (and kernel C on the live contact pool, d=15) against
      their twins in f32 and f64 at the shapes of phase 7's final, draped
-     state, and time them;
+     state, and time them (F at each of its sites, w_pt, w_ee and w_et, with
+     phase 7's launches by site);
   9. run the spinning_box_cloth_16 golden scene in float64 against the
      reference trajectory, with tests/test_trajectory_parity.py's bounds
      (in a child process, `chip_smoke.py --golden-sbc16 OUT`, started after
@@ -49,13 +50,15 @@ Phases (every failure propagates; nothing is caught):
      (ok, finite, live contact pairs at the end, no intersection, every
      kernel of the path launched);
  13. at phase 12's final state, hold kernels K and L exactly against their
-     twins in f32 and f64 (ee_dd on the grid; pt_dd and ee_dr dense), the
+     twins in f32 and f64 (L at every stem, as `_stem_pairs` calls it:
+     ee_dd on the grid, the others dense) and F at the oracle's w_et, the
      broad shell's lists and the per-stem friction tables (mu = 1, f64)
      against the engine's twin path (every kernel's twin on the CPU, on
      the card's inputs), and the family pair
      sets of the grid against those of a dense-mode engine at the same
      state; time K (also step by step, CUDA events between its launches),
-     L, their twins, and ee_dd's grid path against the dense
+     L at every stem and F at w_et (with phase 12's launches by site and
+     each site's bound), their twins, and ee_dd's grid path against the dense
      ball path (phases 12 and 13 run in a child process,
      `chip_smoke.py --scale64 OUT`, started with phase 9's); and, at the same
      state, kernel F's oracle ball pairs from the card's torch glue against
@@ -551,10 +554,122 @@ def live_pool_hessians(sim, eng, nm, u, Vs, Vr, slack_b, slack_p):
     return H_live, valid, int(cnt)
 
 
-def contact_kernel_checks(sim):
+class site_launches:
+    """Within this context, the engine's calls that launch kernels F and L
+    are counted by site: F per ball list (`_ball_wide`'s key), L per stem
+    (`_stem_pairs`) and per oracle block (`_isect_blocks`, one launch a
+    block). A call inside a CUDA graph capture counts once, as the kernels'
+    own counters do."""
+
+    def __init__(self):
+        self.counts = {}
+
+    def _wrap(self, fn, sites):
+        def run(eng, *args, **kw):
+            for site in sites(eng, *args):
+                self.counts[site] = self.counts.get(site, 0) + 1
+            return fn(eng, *args, **kw)
+        return run
+
+    def __enter__(self):
+        from stark_tpu_torch.models.interactions.contact_engine import ContactEngine as CE
+
+        self.saved = {n: getattr(CE, n) for n in ("_ball_wide", "_stem_pairs", "_isect_blocks")}
+        CE._ball_wide = self._wrap(self.saved["_ball_wide"],
+                                   lambda eng, key, *a: ["ball_wide " + key])
+        CE._stem_pairs = self._wrap(self.saved["_stem_pairs"],
+                                    lambda eng, stem, *a: ["rowk_select " + stem])
+        CE._isect_blocks = self._wrap(self.saved["_isect_blocks"], lambda eng, *a: [
+            "rowk_select " + key for key, _ne, _nt in eng._i_blocks()])
+        return self
+
+    def __exit__(self, *exc):
+        from stark_tpu_torch.models.interactions.contact_engine import ContactEngine as CE
+
+        for n, fn in self.saved.items():
+            setattr(CE, n, fn)
+
+    def of(self, kernel: str, launches: dict) -> dict:
+        """The sites' counts of `kernel`, checked against its own count."""
+        out = {k.split(" ", 1)[1]: v for k, v in self.counts.items()
+               if k.startswith(kernel + " ")}
+        assert sum(out.values()) == launches.get(kernel, 0), (kernel, out, launches.get(kernel))
+        return out
+
+
+def ball_sites(eng, Vs, Vr, dtype, slack_b, slack_p, keys=("w_pt", "w_ee", "w_et")):
+    """Kernel F's arguments at its sites as the engine builds them (the
+    dense broad shell's w_pt and w_ee, the oracle's w_et): key -> (A, ra,
+    B, rb, allowed, extra, cap)."""
+    Vcat = eng._vcat(Vs, Vr).to(dtype).contiguous()
+    th = eng.th_vec().to(dtype)
+    th_p, th_t, th_e = th[eng.d_p_mesh], th[eng.d_t_mesh], th[eng.d_e_mesh]
+    f = lambda x: torch.as_tensor(x, dtype=dtype, device=DEVICE)
+    pad = eng._bound_pad(Vcat)
+    m, h = eng._edge_balls(Vcat)
+    c, r = eng._tri_balls(Vcat)
+    sites = {
+        "w_pt": lambda: (Vcat, th_p, c, r + th_t, eng.d_pt_allowed, f(slack_b + slack_p) + pad),
+        "w_ee": lambda: (m, h + th_e, m, h + th_e, eng.d_ee_allowed, f(slack_b + slack_p) + pad),
+        "w_et": lambda: (m, h, c, r, eng.d_et_allowed, f(slack_b) + pad),
+    }
+    return {k: sites[k]() + (eng._cap(k),) for k in keys}
+
+
+def ball_site_record(args, launches: int) -> dict:
+    """Kernel F at one site (float32): its time in a CUDA graph, the twin's
+    and the library yardstick's, and its bound on the inputs: the (Na, Nb)
+    allowed bytes, the balls and their squared norms read once, the (cap,)
+    q and t lists and the count written once; 12 flops per pair test."""
+    from stark_tpu_torch.ops import ball_wide as bw
+
+    A, ra, B, rb, allowed, extra, cap = args
+    Na, Nb = A.shape[0], B.shape[0]
+    el = A.element_size()
+    bnd = bound_ms(Na * Nb + nbytes(A, ra, B, rb) + el * (Na + Nb) + 8 * cap + 4,
+                   12.0 * Na * Nb, A.dtype)
+
+    def lib_ball():
+        a2 = (A * A).sum(-1)
+        b2 = (B * B).sum(-1)
+        rhs = ra[:, None] + rb[None, :] + extra
+        mask = allowed.bool() & (a2[:, None] + b2[None, :] - 2.0 * (A @ B.T)
+                                 <= rhs * rhs)
+        return torch.nonzero(mask)
+
+    n = int(bw.ball_wide(*args)[2])
+    return dict(max_abs_err=0.0, launches=launches,
+                ms=graph_ms(lambda: bw.ball_wide(*args)),
+                plain_ms=events_ms(lambda: bw.ball_wide_plain(*args), iters=5),
+                library_ms=events_ms(lib_ball, iters=5), bound_ms=bnd[0], bound_by=bnd[1],
+                shape=f"{Na}x{Nb} balls, {n} pairs, cap {cap}")
+
+
+def hold_ball_sites(sites, dtype, where: str) -> dict:
+    """Kernel F against its twin at each site, bit for bit: {key: pairs}."""
+    from stark_tpu_torch.ops import ball_wide as bw
+
+    counts = {}
+    for key, args in sites.items():
+        q, t, cnt = bw.ball_wide(*args)
+        q_ref, t_ref, cnt_ref = bw.ball_wide_plain(*args)
+        torch.cuda.synchronize()
+        same = (torch.equal(q, q_ref) and torch.equal(t, t_ref)
+                and int(cnt) == int(cnt_ref))
+        log(f"  ball_wide[{key}] {str(dtype):<14} {where} pairs={int(cnt)} "
+            f"grid={args[0].shape[0]}x{args[2].shape[0]} cap={args[-1]} "
+            f"{'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError(f"ball_wide[{key}] ({dtype}, {where}) differs from its twin")
+        counts[key] = int(cnt)
+    return counts
+
+
+def contact_kernel_checks(sim, ball_launches=None):
     """Kernels E-H on the shapes of the draped 32x32 spinning box, f32 and
     f64 (the f64 inputs are the f32 state cast up), plus kernel C on the
-    live pool at d=15. Returns the timing records of the float32 pass."""
+    live pool at d=15; F at each of its sites (`ball_launches`: phase 7's
+    launches by site). Returns the timing records of the float32 pass."""
     from stark_tpu_torch.ops import ball_wide as bw, compact as cp
     from stark_tpu_torch.ops import narrow as nw, pd_project as pd
     from stark_tpu_torch.ops import segment_triangle as st
@@ -575,33 +690,19 @@ def contact_kernel_checks(sim):
         th_p, th_t, th_e = th[eng.d_p_mesh], th[eng.d_t_mesh], th[eng.d_e_mesh]
         sb = torch.as_tensor(slack_b, dtype=dtype, device=DEVICE)
         margin = torch.as_tensor(slack_b + slack_p, dtype=dtype, device=DEVICE)
-        pad = eng._bound_pad(Vcat)
         eps = torch.finfo(dtype).eps
         scale = 1.0 + float(Vcat.abs().max())
 
         # ---- F: the three ball lists of a broad build ----
+        balls = ball_sites(eng, Vs32, Vr32, dtype, slack_b, slack_p)
+        hold_ball_sites(balls, dtype, "phase 8")
         m, h = eng._edge_balls(Vcat)
-        c, r = eng._tri_balls(Vcat)
-        balls = {
-            "w_pt": (Vcat, th_p, c, r + th_t, eng.d_pt_allowed, margin + pad),
-            "w_ee": (m, h + th_e, m, h + th_e, eng.d_ee_allowed, margin + pad),
-            "w_et": (m, h, c, r, eng.d_et_allowed, sb + pad),
-        }
         lists = {}
         for key, args in balls.items():
-            cap = eng._cap(key)
-            q, t, cnt = bw.ball_wide(*args, cap)
-            q_ref, t_ref, cnt_ref = bw.ball_wide_plain(*args, cap)
-            torch.cuda.synchronize()
-            same = (torch.equal(q, q_ref) and torch.equal(t, t_ref)
-                    and int(cnt) == int(cnt_ref))
-            log(f"  ball_wide[{key}] {str(dtype):<14} pairs={int(cnt)} "
-                f"grid={args[0].shape[0]}x{args[2].shape[0]} cap={cap} "
-                f"{'ok' if same else 'FAIL'}")
-            if not same:
-                raise AssertionError(f"ball_wide[{key}] ({dtype}) differs from its twin")
+            q, t, cnt = bw.ball_wide(*args)
+            cap = args[-1]
             act = torch.arange(cap, device=DEVICE) < torch.clamp_max(cnt, cap)
-            lists[key] = (q, t, act, args)
+            lists[key] = (q, t, act, args[:-1])
 
         # ---- G: exact distances over the wide PT and EE lists ----
         q, t, act, _ = lists["w_pt"]
@@ -685,32 +786,11 @@ def contact_kernel_checks(sim):
             continue
         # ---- timings and bounds (float32, the main path's dtype) ----
         el = Vcat.element_size()
-        A, ra, B, rb, allowed, extra = balls["w_ee"]
-        cap_w = eng._cap("w_ee")
-        npairs = int(lists["w_ee"][2].sum())
-        Na, Nb = A.shape[0], B.shape[0]
-        # inputs read once (the (Na, Nb) allowed bytes, the balls and their
-        # squared norms), the (cap,) q and t lists and the count written
-        # once; 12 flops per pair test
-        bnd = bound_ms(Na * Nb + nbytes(A, ra, B, rb) + el * (Na + Nb) + 8 * cap_w + 4,
-                       12.0 * Na * Nb, dtype)
-
-        def lib_ball():
-            a2 = (A * A).sum(-1)
-            b2 = (B * B).sum(-1)
-            rhs = ra[:, None] + rb[None, :] + extra
-            mask = allowed.bool() & (a2[:, None] + b2[None, :] - 2.0 * (A @ B.T)
-                                     <= rhs * rhs)
-            return torch.nonzero(mask)
-
-        results["ball_wide"] = dict(
-            max_abs_err=0.0,
-            ms=graph_ms(lambda: bw.ball_wide(A, ra, B, rb, allowed, extra, cap_w)),
-            plain_ms=events_ms(lambda: bw.ball_wide_plain(A, ra, B, rb, allowed,
-                                                          extra, cap_w), iters=5),
-            library_ms=events_ms(lib_ball, iters=5),
-            bound_ms=bnd[0], bound_by=bnd[1],
-            shape=f"w_ee: {Na}x{Nb} balls, {npairs} pairs, cap {cap_w}")
+        # F at each site of a broad build; the kernels line's record is w_ee's
+        sites = {"phase 8 " + k: ball_site_record(a, (ball_launches or {}).get(k, 0))
+                 for k, a in balls.items()}
+        results["ball_wide"] = dict(sites["phase 8 w_ee"], sites=sites)
+        log("  ball_wide sites (float32): " + json.dumps(sites))
         n = keep_e.numel()
         ncnt = int(keep_e.sum())
         # the mask read once, the (cap,) index buffer and the count written
@@ -1343,12 +1423,98 @@ def family_sets(tables):
     return out
 
 
-def scale64_checks(sim):
-    """Phase 13 at the final state of phase 12: kernels K and L exactly
-    against their twins (f64, then f32: the f32 pass is timed), the broad
-    shell and the per-stem friction tables against the engine's twin path,
-    grid against dense pair sets; returns (timing
-    records of K and L, the ee_dd grid-vs-dense times and pair counts)."""
+def rowk_sites(eng, Vs, Vr, th, sl):
+    """Kernel L's arguments at each stem of the per-stem broad shell, as
+    `_stem_pairs` builds them (kernel K's bucket index first where the stem
+    takes the hash grid): stem -> (qc, tc, Sphere, Pred, K, GridIndex or
+    None)."""
+    from stark_tpu_torch.collision import broad_phase as bp
+    from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
+
+    out = {}
+    for stem in eng._blocks():
+        K, pred = eng._cap("c_" + stem), eng._pred(stem)
+        if stem.startswith("pt"):
+            P, th_p, c, r, th_t = eng._pt_geom(stem, Vs, Vr, th)
+            qc, tc, qr, tr = P, c, th_p + sl, r + th_t
+            dense = rk.Sphere("pt", th_p, r, tb=th_t, sl=sl)
+        else:
+            ma, ha, th_a, mb, hb, th_b = eng._ee_geom(stem, Vs, Vr, th)
+            qc, tc, qr, tr = ma, mb, ha + th_a + sl, hb + th_b
+            dense = rk.Sphere("ee", ha, hb, qb=th_a, tb=th_b, sl=sl)
+        if eng._use_grid(*eng._block_sizes(stem)):
+            h = bp.pick_cell_size(qr, tr)
+            key = "g_" + stem
+            offsets, tid_sorted, _cells = gb.grid_build(
+                tc, tr, bp.max_query_radius(qr), h, eng._cap(key + "_ins"),
+                bp.table_size_for(tc.shape[0]))
+            out[stem] = (qc, tc, rk.Sphere("grid", qr, tr), pred, K,
+                         rk.GridIndex(offsets, tid_sorted, h, eng._cap(key + "_occ")))
+        else:
+            out[stem] = (qc, tc, dense, pred, K, None)
+    return out
+
+
+def rowk_bound(args) -> dict:
+    """Kernel L's least time on these inputs. Dense: every pair's sphere
+    test (SPHERE_OPS operations) against the records read once. Grid: the
+    queries' records, each distinct bucket's two offsets and its run (cut
+    at occ_cap) read once, each target those runs name read once, the (Nq,
+    K) ids written once; a sphere test per scanned candidate. The former
+    figure charged 4 bytes per query per scanned id (`bound_ms_former`)."""
+    from stark_tpu_torch.collision import broad_phase as bp
+
+    qc, tc, sph, pr, K, grid = args
+    nq, nt = qc.shape[0], tc.shape[0]
+    el = qc.element_size()
+    q_bytes = nbytes(*(x for x in (qc, sph.qa, sph.qb, pr.qm, pr.qidx) if x is not None))
+    per_target = el * (4 + (sph.tb is not None)) + 4 * (1 + (0 if pr.tidx is None
+                                                              else pr.tidx.shape[1]))
+    if grid is None:
+        b = bound_ms(q_bytes + nt * per_target + 4 * nq * K, SPHERE_OPS * nq * nt, qc.dtype)
+        return dict(bound_ms=b[0], bound_by=b[1], scanned=nq * nt)
+    offs = grid.offsets.long()
+    qb = bp._hash_cells(bp._cell_of(qc, grid.h), offs.shape[0] - 1).long()
+    scanned = int(torch.clamp_max(offs[qb + 1] - offs[qb], grid.occ_cap).sum())
+    ub = torch.unique(qb)
+    run = torch.clamp_max(offs[ub + 1] - offs[ub], grid.occ_cap)
+    first = torch.cumsum(run, 0) - run
+    pos = torch.repeat_interleave(offs[ub], run) + torch.arange(
+        int(run.sum()), device=qc.device) - torch.repeat_interleave(first, run)
+    ids = grid.tid_sorted[pos]
+    targets = int(torch.unique(ids[ids < nt]).numel())
+    b = bound_ms(q_bytes + 8 * ub.numel() + 4 * int(run.sum()) + targets * per_target
+                 + 4 * nq * K, SPHERE_OPS * scanned, qc.dtype)
+    former = bound_ms(nbytes(qc, sph.qa, tc, sph.ta, pr.qm, pr.tm, pr.qidx, pr.tidx,
+                             grid.offsets) + 4 * scanned + 4 * nq * K,
+                      SPHERE_OPS * scanned, qc.dtype)
+    return dict(bound_ms=b[0], bound_by=b[1], bound_ms_former=former[0], scanned=scanned,
+                buckets=int(ub.numel()), distinct_slots=int(run.sum()), targets=targets)
+
+
+def rowk_site_record(args, launches: int) -> dict:
+    """Kernel L at one site (float32): its time in a CUDA graph, the twin's,
+    and its bound (rowk_bound)."""
+    from stark_tpu_torch.ops import rowk_select as rk
+
+    qc, tc, _sph, _pr, K, grid = args
+    bnd = rowk_bound(args)
+    return dict(max_abs_err=0.0, launches=launches,
+                ms=graph_ms(lambda: rk.rowk_select(*args)),
+                plain_ms=events_ms(lambda: rk.rowk_select_plain(*args), iters=5),
+                library_ms=None, **bnd,
+                shape=f"{'grid' if grid is not None else 'dense'}: {qc.shape[0]} queries, "
+                      f"{tc.shape[0]} targets, {bnd['scanned']} scanned, K {K}")
+
+
+def scale64_checks(sim, ball_launches=None, rowk_launches=None):
+    """Phase 13 at the final state of phase 12: kernel K, kernel L at every
+    stem and kernel F at the oracle's w_et exactly against their twins
+    (f64, then f32: the f32 pass is timed; `*_launches`: phase 12's
+    launches by site), the broad shell and the per-stem friction tables
+    against the engine's twin path, grid against dense pair sets; returns
+    (timing records of K, L and F's w_et, the ee_dd grid-vs-dense times and
+    pair counts)."""
     from stark_tpu_torch.collision import broad_phase as bp
     from stark_tpu_torch.ops import ball_wide as bw, grid_build as gb
     from stark_tpu_torch.ops import narrow as nw, rowk_select as rk
@@ -1367,7 +1533,7 @@ def scale64_checks(sim):
         ma, ha, th_a, mb, hb, th_b = eng._ee_geom("ee_dd", Vs, Vr, th)
         qr, tr = ha + th_a + sl, hb + th_b
         h = bp.pick_cell_size(qr, tr)
-        ins, occ = eng._cap("g_ee_dd_ins"), eng._cap("g_ee_dd_occ")
+        ins = eng._cap("g_ee_dd_ins")
         tsz = bp.table_size_for(mb.shape[0])
         k_args = (mb, tr, bp.max_query_radius(qr), h, ins, tsz)
         out_k = gb.grid_build(*k_args)
@@ -1378,34 +1544,25 @@ def scale64_checks(sim):
         log(f"  grid_build {str(dtype):<14} T={mb.shape[0]} ins={ins} table={tsz} "
             f"h={float(h):.4e} slots={int(out_k[0][-1])} max_cells={int(out_k[2])} "
             f"longest bucket run={int(run)} ok")
-        K = eng._cap("c_ee_dd")
-        grid = rk.GridIndex(out_k[0], out_k[1], h, occ)
-        l_args = (ma, mb, rk.Sphere("grid", qr, tr), eng._pred("ee_dd"), K, grid)
-        out_l = rk.rowk_select(*l_args)
-        ref_l = rk.rowk_select_plain(*l_args)
-        torch.cuda.synchronize()
-        same_tree(tuple(out_l), tuple(ref_l), f"rowk_select[grid ee_dd] ({dtype})")
-        log(f"  rowk_select[grid ee_dd] {str(dtype):<14} Nq={ma.shape[0]} K={K} "
-            f"occ_cap={occ} max_row={int(out_l[1])} max_occ={int(out_l[2])} ok")
-        # L dense: pt_dd (4,225 x 8,192) and ee_dr (the box's edges)
-        P, th_p, c, r, th_t = eng._pt_geom("pt_dd", Vs, Vr, th)
-        mr, hr, th_r, ms, hs, th_s = eng._ee_geom("ee_dr", Vs, Vr, th)
-        for stem, args in (
-                ("pt_dd", (P, c, rk.Sphere("pt", th_p, r, tb=th_t, sl=sl),
-                           eng._pred("pt_dd"), eng._cap("c_pt_dd"))),
-                ("ee_dr", (mr, ms, rk.Sphere("ee", hr, hs, qb=th_r, tb=th_s, sl=sl),
-                           eng._pred("ee_dr"), eng._cap("c_ee_dr")))):
+        # L at every stem, called as _stem_pairs calls it; F at the oracle's w_et
+        lsites = rowk_sites(eng, Vs, Vr, th, sl)
+        for stem, args in lsites.items():
             out = rk.rowk_select(*args)
             ref = rk.rowk_select_plain(*args)
             torch.cuda.synchronize()
-            same_tree(tuple(out[:2]), tuple(ref[:2]), f"rowk_select[dense {stem}] ({dtype})")
-            log(f"  rowk_select[dense {stem}] {str(dtype):<14} "
-                f"{args[0].shape[0]}x{args[1].shape[0]} K={args[4]} "
-                f"max_row={int(out[1])} ok")
+            grid = args[-1] is not None
+            same_tree(tuple(out if grid else out[:2]), tuple(ref if grid else ref[:2]),
+                      f"rowk_select[{stem}] ({dtype})")
+            log(f"  rowk_select[{stem}] {str(dtype):<14} {'grid' if grid else 'dense'} "
+                f"{args[0].shape[0]}x{args[1].shape[0]} K={args[4]} max_row={int(out[1])}"
+                + (f" max_occ={int(out[2])} occ_cap={args[5].occ_cap}" if grid else "")
+                + " ok")
+        bsites = ball_sites(eng, Vs32, Vr32, dtype, slack_b, slack_p, keys=("w_et",))
+        hold_ball_sites(bsites, dtype, "phase 13")
         if dtype == torch.float64:
             continue
         # timing (float32, the path's dtype)
-        T, nq = mb.shape[0], ma.shape[0]
+        T = mb.shape[0]
         # the filled slots only: the padding past offsets[-1] is read by no one
         bnd = bound_ms(nbytes(mb, tr) + 4 * (tsz + 1) + 4 * int(out_k[0][-1]) + 4,
                        0.0, dtype)
@@ -1418,18 +1575,16 @@ def scale64_checks(sim):
             shape=f"ee_dd: {T} targets, {ins} slots, table {tsz}")
         log(f"  grid_build {results['grid_build']['ms']:.4f} ms; by step (events, eager): "
             + ", ".join(f"{k} {v:.4f}" for k, v in split.items()))
-        qb = bp._hash_cells(bp._cell_of(ma, h), tsz).long()
-        offs = out_k[0].long()
-        scanned = int(torch.clamp_max(offs[qb + 1] - offs[qb], occ).sum())
-        pr = l_args[3]
-        bnd = bound_ms(nbytes(ma, qr, mb, tr, pr.qm, pr.tm, pr.qidx, pr.tidx,
-                              out_k[0]) + 4 * scanned + 4 * nq * K,
-                       SPHERE_OPS * scanned, dtype)
-        results["rowk_select"] = dict(
-            max_abs_err=0.0, ms=graph_ms(lambda: rk.rowk_select(*l_args)),
-            plain_ms=events_ms(lambda: rk.rowk_select_plain(*l_args), iters=5),
-            library_ms=None, bound_ms=bnd[0], bound_by=bnd[1],
-            shape=f"ee_dd grid: {nq} queries, {scanned} scanned, K {K}")
+        sites = {"phase 13 " + stem: rowk_site_record(args, (rowk_launches or {}).get(stem, 0))
+                 for stem, args in lsites.items()}
+        results["rowk_select"] = dict(sites["phase 13 ee_dd"], sites=sites)
+        log("  rowk_select sites (float32): " + json.dumps(sites))
+        results["ball_wide_phase13"] = {
+            "phase 13 w_et": ball_site_record(bsites["w_et"],
+                                              (ball_launches or {}).get("w_et", 0))}
+        log("  ball_wide sites (float32): " + json.dumps(results["ball_wide_phase13"]))
+        log("  the oracle's per-block sites (i_ss, i_sr, i_rs, i_rr) launch L only where "
+            f"ET takes the per-block path: {sorted(k for k in (rowk_launches or {}) if k.startswith('i_'))}")
 
     # the broad shell (the grid's mid lists, the dense oracle's lists) and
     # its counts against the engine's twin path (f32)
@@ -1555,19 +1710,20 @@ def scale64_run(out_json: str) -> int:
 
     build.reset_launches()
     torch.cuda.synchronize()
-    t_warm = time.perf_counter()
-    assert sim.run_one_time_step(), "the warm-up step failed"
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t_warm
-    track()
-    live.clear()
-    warm_newton = int(lg.get_stats("newton_iterations").total)
-    t_sim = sim.get_time()
-    t1 = time.perf_counter()
-    ok = sim.run(duration=SCALE_SECONDS, callback=track)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    track()
+    with site_launches() as sites12:
+        t_warm = time.perf_counter()
+        assert sim.run_one_time_step(), "the warm-up step failed"
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t_warm
+        track()
+        live.clear()
+        warm_newton = int(lg.get_stats("newton_iterations").total)
+        t_sim = sim.get_time()
+        t1 = time.perf_counter()
+        ok = sim.run(duration=SCALE_SECONDS, callback=track)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        track()
     launches = dict(build.launches, **func_launches())
     launches["compact"] = sum(v for k, v in launches.items() if k.startswith("compact["))
     newton = int(lg.get_stats("newton_iterations").total) - warm_newton
@@ -1592,6 +1748,8 @@ def scale64_run(out_json: str) -> int:
     }
     print("scale_64: " + json.dumps(fields), flush=True)
     print(f"launches={launches}", flush=True)
+    ball12, rowk12 = sites12.of("ball_wide", launches), sites12.of("rowk_select", launches)
+    print(f"  launches by site: ball_wide {ball12}, rowk_select {rowk12}", flush=True)
     x = cloth.point_set.get_positions()
     assert fields["ok"], "the scale run failed"
     assert np.all(np.isfinite(x)), "non-finite positions"
@@ -1602,7 +1760,7 @@ def scale64_run(out_json: str) -> int:
     assert_egh_path(sim, launches, BOX_FAMILIES, "the 64x64 scale point")
     print("-- phase 13", flush=True)
     torch.set_num_threads(4)     # the twins' CPU runs
-    results, info = scale64_checks(sim)
+    results, info = scale64_checks(sim, ball12, rowk12)
     print("-- phase 17 (the scale point's state)", flush=True)
     egh12 = egh_checks(sim, BOX_FAMILIES, "phase 12", 12)
     k12 = k12_window(sim, 1, "phase 12")
@@ -3459,7 +3617,8 @@ KERNELS = [
      "stark_tpu/models/interactions/contact_engine.py:1031"),
 ]
 # the kernels line's optional keys of a record
-EXTRA_KEYS = ("left_out", "exact_tests", "exact_share", "bound_ms_every_pair", "split_ms")
+EXTRA_KEYS = ("left_out", "exact_tests", "exact_share", "bound_ms_every_pair", "split_ms",
+              "sites")
 CONTACT_KERNELS = ("compact", "ball_wide", "pt_ee_distance[pt]",
                    "pt_ee_distance[ee]", "segment_triangle_any")
 FRICTION_KERNELS = ("friction_pairs[pt]", "friction_pairs[ee]", "friction_rows[pt]",
@@ -3930,7 +4089,8 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     sbc, cloth_sbc, spin = make_spinning_box(N_SBC, "float32")
     sbc.add_time_event(0.0, 10.0, spin)
     sbc_steps = int(round(SBC_SECONDS / sbc.stark.settings.simulation.max_time_step_size))
-    launches_sbc, fields = run_spinning_box(sbc, sbc_steps)
+    with site_launches() as sites7:
+        launches_sbc, fields = run_spinning_box(sbc, sbc_steps)
     launches_sbc["compact"] = sum(v for k, v in launches_sbc.items()
                                   if k.startswith("compact["))
     log("  bench fields: " + json.dumps(fields))
@@ -3946,7 +4106,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
 
     # ---- 8 ----
     log("phase 8: kernels E-H (and C on the live pool) against their twins")
-    results.update(contact_kernel_checks(sbc))
+    ball7 = sites7.of("ball_wide", launches_sbc)
+    log(f"  phase 7 launches of F by site: {ball7}")
+    results.update(contact_kernel_checks(sbc, ball7))
 
     # ---- 15: the other staged configurations ----
     log(f"phase 15: the staged solver's other configurations ({N_DENSE}x{N_DENSE} "
@@ -3990,6 +4152,9 @@ def phases_3_to_11(card, t_start, golden_child, friction_child, scale_child,
     log(f"  {r12['seconds']:.2f}s (beside phases 3-10)")
     launches_scale = r12["launches"]
     results.update(r12["results"])
+    # F's sites: phase 8's three lists (phase 7's launches), phase 13's w_et
+    # (phase 12's)
+    results["ball_wide"]["sites"].update(results.pop("ball_wide_phase13"))
     # every other process is done with the card: phase 16 may time it
     open(os.path.join(OUT_DIR, "staged.go"), "w").close()
 

@@ -1,7 +1,6 @@
 // Kernel E: stream compaction of a byte mask into a fixed-capacity index
-// buffer, plus the exclusive scan it is built on (shared with kernel F), and
-// that scan's two-level form for long count arrays (kernels I and K; at the
-// end of this file).
+// buffer, plus the exclusive scan it is built on, and that scan's two-level
+// form for long count arrays (kernels F, I and K; at the end of this file).
 //
 // Replaces stark_tpu/ops/compaction.py `compact_indices` (:59-119): the
 // indices of the set entries of a flat mask, ascending, written into a (cap,)
@@ -117,8 +116,8 @@ __global__ void chunk_scatter_kernel(const uint8_t* __restrict__ mask,
   }
 }
 
-// Host helper shared with kernel F (ball_wide.cu): exclusive scan of m int
-// counts on the device. m == 0 writes a zero total.
+// The compaction's exclusive scan of m int counts on the device, one block.
+// m == 0 writes a zero total.
 int stk_exclusive_scan_i32(const int* counts, int m, int* offsets, int* total,
                            cudaStream_t stream) {
   if (m == 0) {
@@ -151,16 +150,18 @@ STK_API int stk_compact(const uint8_t* mask, long long n, int cap, int* idx,
   return stk_launch_status();
 }
 
-// The two-level form of the scan, for the long count arrays of kernels I and
-// K (a count per (row, column tile), per bucket, per (digit, radix tile)):
+// The two-level form of the scan, for the long count arrays of kernels F, I
+// and K (a count per (row, column tile), per bucket, per (digit, radix
+// tile)):
 // the one-block scan above walks m / 1024 strided counts per thread, which
 // at m = 65,536 took 0.135 ms on the H100. Here a block per SCAN_CHUNK
 // counts sums its chunk, then a block per chunk reduces the sums of the
 // chunks before it, scans its own chunk and writes it (in place is fine:
 // each thread reads its counts before any is written). m == 0 writes a zero
-// total; `partials` holds ceil(m / SCAN_CHUNK) ints.
-#define SCAN_ITEMS 16
-#define SCAN_CHUNK (CMP_THREADS * SCAN_ITEMS)
+// total; `partials` holds ceil(m / SCAN_CHUNK) ints (stk_scan_partials).
+#define SCAN_CHUNK STK_SCAN_CHUNK
+#define SCAN_ITEMS (SCAN_CHUNK / CMP_THREADS)
+static_assert(SCAN_ITEMS * CMP_THREADS == SCAN_CHUNK, "a chunk is whole threads' items");
 
 __global__ void __launch_bounds__(CMP_THREADS)
     chunk_sum_kernel(const int* __restrict__ counts, long long m, int* __restrict__ partials) {

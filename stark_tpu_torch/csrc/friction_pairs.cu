@@ -123,50 +123,6 @@ STK_HD T margin_k(T k2) {
   return T(64) * u + T(64) * u * k2 + T(8192) * u * u * k2 * k2;
 }
 
-// bit k set where byte k of w is nonzero (k = 0..3)
-STK_HD uint32_t nz4(uint32_t w) {
-  uint32_t x = w | (w >> 4);
-  x |= x >> 2;
-  x |= x >> 1;
-  return ((x & 0x01010101u) * 0x10204080u) >> 28;
-}
-
-// bit k set where allowed[base + k] != 0, for k < valid (<= 16); total is
-// the mask's length. One 16-byte-aligned pair of vector loads on the card.
-STK_HD uint32_t lane_mask16(const uint8_t* allowed, long long total, long long base,
-                            int valid) {
-  if (valid <= 0) return 0u;
-  if (valid > 16) valid = 16;
-  uint32_t m = 0u;
-  bool done = false;
-#ifdef __CUDA_ARCH__
-  const uint8_t* at = allowed + base;
-  const int a = (int)((uintptr_t)at & 15);
-  const uint8_t* p = at - a;
-  if (p >= allowed && p + 32 <= allowed + total) {
-    const uint4 c0 = *reinterpret_cast<const uint4*>(p);
-    const uint4 c1 = *reinterpret_cast<const uint4*>(p + 16);
-    const uint32_t lo = nz4(c0.x) | nz4(c0.y) << 4 | nz4(c0.z) << 8 | nz4(c0.w) << 12;
-    const uint32_t hi = nz4(c1.x) | nz4(c1.y) << 4 | nz4(c1.z) << 8 | nz4(c1.w) << 12;
-    m = ((lo | hi << 16) >> a) & 0xFFFFu;
-    done = true;
-  }
-#endif
-  if (!done)
-    for (int k = 0; k < valid; ++k)
-      if (base + k < total && allowed[base + k] != 0) m |= 1u << k;
-  return valid < 16 ? m & ((1u << valid) - 1u) : m;
-}
-
-// the set bits of a word
-STK_HD int pl_popc(uint32_t x) {
-#ifdef __CUDA_ARCH__
-  return __popc(x);
-#else
-  return __builtin_popcount(x);
-#endif
-}
-
 template <typename T>
 STK_HD T tmax(T a, T b) {
   return a > b ? a : b;
@@ -416,11 +372,11 @@ static inline int pl_tiles(int nt) { return (nt + PL_TILE_COLS - 1) / PL_TILE_CO
 
 // scratch bytes of a launch: the column records (NF T per column), then
 // per (row, tile) a count, an offset and 16 bit words, and the scan's chunk
-// sums (one per 4,096 cells)
+// sums
 static long long pl_scratch_bytes(int nq, int nt, int nf, int el) {
   const long long cells = (long long)nq * pl_tiles(nt);
   const long long rec = ((long long)nf * nt * el + 15) / 16 * 16;
-  return rec + cells * (2 + PL_TILE_WORDS) * 4 + (cells / 4096 + 1) * 4;
+  return rec + cells * (2 + PL_TILE_WORDS) * 4 + stk_scan_partials(cells) * 4;
 }
 
 STK_API long long stk_pair_lists_scratch_bytes(int nq, int nt, int ee, int el) {
@@ -429,9 +385,6 @@ STK_API long long stk_pair_lists_scratch_bytes(int nq, int nt, int ee, int el) {
 }
 
 #ifdef __CUDACC__
-int stk_exclusive_scan_i32_blocks(const int* counts, long long m, int* offsets, int* total,
-                                  int* partials, cudaStream_t stream);
-
 template <class G>
 __global__ void pl_prep_kernel(G g) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
@@ -607,7 +560,7 @@ static int launch_pairs(G g, int cap, int* q, int* t, typename G::Real* d,
           if (pair_exact(g, i, j)) kw |= 1u << lane;
         }
         bits[cell * PL_TILE_WORDS + k] = kw;
-        c += pl_popc(kw);
+        c += stk_popc(kw);
       }
       counts[cell] = c;
     }

@@ -44,15 +44,11 @@
 // function's).
 #include "stk_common.cuh"
 
-int stk_exclusive_scan_i32_blocks(const int* counts, long long m, int* offsets, int* total,
-                                  int* partials, cudaStream_t stream);
-
 #define GB_THREADS 256
 #define GB_WARPS (GB_THREADS / 32)
 #define GB_ROUNDS 16
 #define GB_TILE (GB_THREADS * GB_ROUNDS)
 #define GB_DIGITS 256
-#define GB_SCAN_CHUNK 4096   // compact.cu's SCAN_CHUNK
 
 __device__ __forceinline__ float rn_div(float a, float b) { return __fdiv_rn(a, b); }
 __device__ __forceinline__ double rn_div(double a, double b) { return __ddiv_rn(a, b); }
@@ -99,7 +95,7 @@ static long long gb_partials(int nt, long long n_slots, int table_size) {
   long long m = nt;
   if (table_size > m) m = table_size;
   if (GB_DIGITS * gb_tiles(n_slots) > m) m = GB_DIGITS * gb_tiles(n_slots);
-  return m / GB_SCAN_CHUNK + 1;
+  return stk_scan_partials(m);
 }
 
 STK_API long long stk_grid_build_scratch_ints(int nt, int ins, int table_size) {

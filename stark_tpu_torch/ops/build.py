@@ -17,7 +17,8 @@ bit. Their element math also builds as plain C++17 with g++
 (`host_library`, CPU only, for the tests and for the operation counts
 `chip_smoke.py` prices a bound with), and so does kernel I
 (`host_pairs_library`, its tiles' lanes in turn, for its CPU test and the
-exact-distance share `chip_smoke.py` prints). Kernel Y (`pcg_step.cu`)
+exact-distance share `chip_smoke.py` prints) and kernels F and L
+(`host_broad_library`, for their CPU test). Kernel Y (`pcg_step.cu`)
 builds with `-fmad=false` too, so that its vector updates round as its
 plain version's; it and kernel X (`graph_ctl.cu`, the CUDA-graph loop
 control) are left out of the g++ build.
@@ -78,6 +79,7 @@ _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _host_lib: Optional[ctypes.CDLL] = None
 _host_pairs_lib: Optional[ctypes.CDLL] = None
+_host_broad_lib: Optional[ctypes.CDLL] = None
 build_info: dict = {}
 
 _P = ctypes.c_void_p
@@ -99,8 +101,6 @@ _SIGNATURES = {
     "stk_hvp_table": [_P, _P, _I, _P, _I, _P, _I, _I, _P, _P],
     "stk_dense_runs": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
     "stk_block3_apply": [_P, _P, _I, _P, _P],
-    "stk_ball_wide": [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P,
-                      _P, _P],
     "stk_pt_distance": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
     "stk_ee_distance": [_P, _P, _P, _P, _I, _D, _P, _P, _P, _P, _P],
     "stk_segment_triangle_any": [_P, _P, _P, _P, _P, _I, _P, _D, _P, _P, _P],
@@ -111,9 +111,15 @@ _SIGNATURES = {
     "stk_grid_build": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     # kernel K with a CUDA event recorded between its steps (the split timing)
     "stk_grid_build_split": [_P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
-                        _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P],
 }
+# kernels F and L (the last argument the stream; the g++ build's stk_host_
+# forms take none)
+BROAD_SIGNATURES = {
+    "stk_ball_wide": [_P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P, _P, _P],
+    "stk_rowk_select": [_I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _I, _P, _I, _P, _P, _I, _I, _P, _I, _P, _P, _P, _P],
+}
+_SIGNATURES.update(BROAD_SIGNATURES)
 # kernel I (the last argument the stream; the g++ build's stk_host_ forms
 # take, in its place, the cull switch and a pointer to the exact-test count)
 PAIR_SIGNATURES = {
@@ -129,7 +135,9 @@ PAIR_SIGNATURES = {
 _SIGNATURES.update(PAIR_SIGNATURES)
 # scratch sizes (bytes or ints) that a launcher computes from its shapes
 _SIZES = {"stk_pair_lists_scratch_bytes": [_I, _I, _I, _I],
-          "stk_grid_build_scratch_ints": [_I, _I, _I]}
+          "stk_grid_build_scratch_ints": [_I, _I, _I],
+          "stk_ball_wide_scratch_ints": [_I, _I],
+          "stk_rowk_select_scratch_ints": [_I, _I]}
 # kernels M-W: one entry point per family, (ptrs, scalars, E, e, g, H, stream)
 EGH_FAMILIES = ("strain", "strain_eo", "lumped", "prescribed", "shells_flat",
                 "rb_linear", "rb_angular", "global_points", "global_directions",
@@ -373,6 +381,45 @@ def host_pairs_library() -> ctypes.CDLL:
         fn.restype = ctypes.c_longlong
         _host_pairs_lib = lib
         return _host_pairs_lib
+
+
+def host_broad_library() -> ctypes.CDLL:
+    """Kernels F and L (csrc/ball_wide.cu, csrc/rowk_select.cu) built as
+    plain C++17 with g++ into build/libstark_broad_host_<hash>.so: entry
+    points stk_host_ball_wide_f32/_f64 and stk_host_rowk_select_f32/_f64
+    with the card's arguments but the stream, which run the tiles, the
+    grouping and the walks with each round's lanes in turn on the CPU."""
+    global _host_broad_lib
+    if _host_broad_lib is not None:
+        return _host_broad_lib
+    with _lock:
+        if _host_broad_lib is not None:
+            return _host_broad_lib
+        lib = ctypes.CDLL(_host_build([os.path.join(CSRC, "ball_wide.cu"),
+                                       os.path.join(CSRC, "rowk_select.cu")],
+                                      "stark_broad_host"))
+        for name, args in BROAD_SIGNATURES.items():
+            for suffix in ("_f32", "_f64"):
+                fn = getattr(lib, name.replace("stk_", "stk_host_", 1) + suffix)
+                fn.argtypes = args[:-1]
+                fn.restype = ctypes.c_int
+        for name in ("stk_ball_wide_scratch_ints", "stk_rowk_select_scratch_ints"):
+            fn = getattr(lib, name)
+            fn.argtypes = _SIZES[name]
+            fn.restype = ctypes.c_longlong
+        _host_broad_lib = lib
+        return _host_broad_lib
+
+
+def host_broad_entry(name: str, dtype: Optional[torch.dtype] = None):
+    """The host build's counterpart of entry(name, dtype) for kernels F and L."""
+    lib = host_broad_library()
+    if dtype is None:
+        return getattr(lib, name)
+    suffix = {torch.float32: "_f32", torch.float64: "_f64"}.get(dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    return getattr(lib, name.replace("stk_", "stk_host_", 1) + suffix)
 
 
 def host_pairs_entry(name: str, dtype: Optional[torch.dtype] = None):

@@ -16,7 +16,10 @@ exclusion predicate, and returns the first K kept ids, padded with nt:
 exactly `_rowk_topk`'s K smallest ids in its ascending order. It also
 returns the largest kept count of a row (the c_/cf_/i_ capacity check)
 and, in grid mode, the largest bucket run a query reads (g_<stem>_occ).
-The (Nq, M) mask of the twin is never written.
+The (Nq, M) mask of the twin is never written: blocks of 16 queries mark
+each tile of their walk into bit words in parallel, the queries of one
+bucket sharing each staged tile, and a warp per query emits its row from
+the words (csrc/rowk_select.cu).
 
 `Sphere.form` picks JAX's order of sums for rhs, which decides a pair that
 sits on the boundary:
@@ -32,6 +35,7 @@ sits on the boundary:
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -176,12 +180,16 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
-def rowk_select(qc, tc, sphere: Sphere, pred: Pred, K: int,
-                grid: Optional[GridIndex] = None):
-    """(tid (Nq, K) int32, max_row () int32, max_occ () int32 or None); see
-    the module note. qc (Nq, 3), tc (nt, 3); K >= 1."""
-    if qc.device.type == "cpu":
-        return rowk_select_plain(qc, tc, sphere, pred, K, grid)
+@functools.lru_cache(maxsize=None)
+def _scratch_ints(host: bool, nq: int, walk: int) -> int:
+    lib = build.host_broad_entry if host else build.entry
+    return lib("stk_rowk_select_scratch_ints")(nq, walk)
+
+
+def _call(qc, tc, sphere: Sphere, pred: Pred, K: int, grid: Optional[GridIndex],
+          host: bool):
+    """The outputs, the entry point's arguments but the stream, and the
+    tensors they point to (kept alive until the call returns)."""
     dt = qc.dtype
     qc, tc = qc.contiguous(), tc.contiguous()
     f = [None if x is None else x.to(dt).reshape(-1).contiguous()
@@ -192,10 +200,12 @@ def rowk_select(qc, tc, sphere: Sphere, pred: Pred, K: int,
             for x in (pred.qm, pred.tm, pred.qidx, pred.tidx)]
     allowed = pred.allowed.contiguous()
     ts = [x for x in [qc, tc, sl, allowed] + f + ints if x is not None]
+    h = None
     if grid is not None:
         h = grid.h.reshape(()).to(dt).contiguous()
         ts += [grid.offsets, grid.tid_sorted, h]
-    build.require_cuda("rowk_select", *ts)
+    if not host:
+        build.require_cuda("rowk_select", *ts)
     if any(x is not None and x.dtype != torch.int32 for x in ints) \
             or allowed.dtype != torch.uint8:
         raise TypeError("rowk_select: index tables int32, allowed uint8")
@@ -206,19 +216,44 @@ def rowk_select(qc, tc, sphere: Sphere, pred: Pred, K: int,
     dev = qc.device
     tid = torch.empty((Nq, K), dtype=torch.int32, device=dev)
     maxes = torch.empty((2,), dtype=torch.int32, device=dev)   # max_row, max_occ
+    walk = nt if grid is None else grid.occ_cap
+    scratch = torch.empty((_scratch_ints(host, Nq, walk),), dtype=torch.int32, device=dev)
     qidx, tidx = ints[2], ints[3]
-    rc = build.entry("stk_rowk_select", dt)(
-        FORMS[sphere.form], PREDS[pred.code], qc.data_ptr(), Nq, _ptr(f[0]),
-        _ptr(f[1]), tc.data_ptr(), nt, _ptr(f[2]), _ptr(f[3]), sl.data_ptr(),
-        ints[0].data_ptr(), ints[1].data_ptr(), M, allowed.data_ptr(),
-        _ptr(qidx), 0 if qidx is None else qidx.shape[1],
-        _ptr(tidx), 0 if tidx is None else tidx.shape[1],
-        None if grid is None else grid.offsets.data_ptr(),
-        None if grid is None else grid.tid_sorted.data_ptr(),
-        0 if grid is None else grid.occ_cap,
-        0 if grid is None else grid.offsets.shape[0] - 1,
-        None if grid is None else h.data_ptr(),
-        K, tid.data_ptr(), maxes.data_ptr(), build.stream_ptr(dev))
+    args = [FORMS[sphere.form], PREDS[pred.code], qc.data_ptr(), Nq, _ptr(f[0]),
+            _ptr(f[1]), tc.data_ptr(), nt, _ptr(f[2]), _ptr(f[3]), sl.data_ptr(),
+            ints[0].data_ptr(), ints[1].data_ptr(), M, allowed.data_ptr(),
+            _ptr(qidx), 0 if qidx is None else qidx.shape[1],
+            _ptr(tidx), 0 if tidx is None else tidx.shape[1],
+            None if grid is None else grid.offsets.data_ptr(),
+            None if grid is None else grid.tid_sorted.data_ptr(),
+            0 if grid is None else grid.occ_cap,
+            0 if grid is None else grid.offsets.shape[0] - 1,
+            _ptr(h), K, tid.data_ptr(), maxes.data_ptr(), scratch.data_ptr()]
+    outs = (tid, maxes[0], (maxes[1] if grid is not None else None))
+    return outs, args, ts + [tid, maxes, scratch]
+
+
+def rowk_select(qc, tc, sphere: Sphere, pred: Pred, K: int,
+                grid: Optional[GridIndex] = None):
+    """(tid (Nq, K) int32, max_row () int32, max_occ () int32 or None); see
+    the module note. qc (Nq, 3), tc (nt, 3); K >= 1."""
+    if qc.device.type == "cpu":
+        return rowk_select_plain(qc, tc, sphere, pred, K, grid)
+    outs, args, _keep = _call(qc, tc, sphere, pred, K, grid, False)
+    rc = build.entry("stk_rowk_select", qc.dtype)(*args, build.stream_ptr(qc.device))
     build.check_status("rowk_select", rc)
     build.count_launch("rowk_select")
-    return tid, maxes[0], (maxes[1] if grid is not None else None)
+    return outs
+
+
+def host_rowk_select(qc, tc, sphere: Sphere, pred: Pred, K: int,
+                     grid: Optional[GridIndex] = None):
+    """The g++ build of kernel L on CPU tensors (rowk_select's arguments and
+    outputs): its grouping of the queries by bucket, segments, staged tiles
+    and walks, each round's lanes in turn."""
+    if qc.device.type != "cpu" or tc.device.type != "cpu":
+        raise ValueError("rowk_select: the host build takes CPU tensors")
+    outs, args, _keep = _call(qc, tc, sphere, pred, K, grid, True)
+    build.check_status("rowk_select",
+                       build.host_broad_entry("stk_rowk_select", qc.dtype)(*args))
+    return outs

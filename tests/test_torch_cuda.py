@@ -24,7 +24,7 @@ from stark_tpu_torch.ops import grid_build as gb, rowk_select as rk
 from stark_tpu_torch.collision import broad_phase as bp
 from stark_tpu_torch.ops import egh
 from stark_tpu_torch.solver import project as tproj
-from stark_tpu_torch.tools import egh_cases as ec, pair_grids
+from stark_tpu_torch.tools import broad_cases as bc, egh_cases as ec, pair_grids
 
 pytestmark = pytest.mark.cuda
 
@@ -315,6 +315,106 @@ def test_ball_wide_matches_twin(dev, dtype, cap):
     torch.cuda.synchronize()
     assert int(out[2]) == int(ref[2]) > 50
     assert torch.equal(out[0].cpu(), ref[0]) and torch.equal(out[1].cpu(), ref[1])
+
+
+def _to(dev, x):
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple):
+        items = [None if y is None else _to(dev, y) for y in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(700, 5037), (2000, 513), (45, 15), (1, 1)])
+def test_ball_wide_tiles_match_twin(dev, dtype, shape):
+    """Kernel F's tiles (tools/broad_cases.py): a last tile and lane cut
+    short, rows without an allowed pair, the capacity cut at 0, inside a
+    tile and out of reach: (q, t, count) bit for bit the twin's, and a
+    relaunch gives the same bits."""
+    na, nb = shape
+    args = bc.ball_case(na + nb, na, nb, dtype)
+    n = int(bw.ball_wide_plain(*args, 1)[2])
+    for cap in (0, 17, n // 2 + 5, n + 1000):
+        ref = bw.ball_wide_plain(*args, cap)
+        out = bw.ball_wide(*_to(dev, args), cap)
+        again = bw.ball_wide(*_to(dev, args), cap)
+        torch.cuda.synchronize()
+        for a, b, c, what in zip(out, again, ref, ("q", "t", "count")):
+            assert torch.equal(a.cpu(), c) and torch.equal(a, b), (what, cap)
+    assert na == 1 or n > 17
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ball_wide_w_et_size(dev, dtype):
+    """Kernel F at the oracle's w_et size of the 64x64 scale point: 12,434 x
+    8,204 balls (102 M pairs, the mask past the 50 MB L2), ~1 M hits;
+    bit for bit the twin's (on the card) and the same bits when relaunched."""
+    args = _to(dev, bc.ball_case(17, 12434, 8204, dtype, hits_per_row=80.0))
+    cap = 1 << 21
+    ref = bw.ball_wide_plain(*args, cap)
+    out = bw.ball_wide(*args, cap)
+    again = bw.ball_wide(*args, cap)
+    torch.cuda.synchronize()
+    for a, b, c, what in zip(out, again, ref, ("q", "t", "count")):
+        assert torch.equal(a, c) and torch.equal(a, b), what
+    assert 500_000 < int(ref[2]) < cap
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("code", list(rk.PREDS))
+def test_rowk_grid_tiles_match_twin(dev, dtype, code):
+    """Kernel L's grid mode on a hand-built bucket index: 150 queries in one
+    bucket, whose run of 6,000 ids (copies at each staged tile's boundary)
+    occ_cap cuts at 5,000, inside a tile; 200 buckets of one query or none;
+    rows over K and rows K holds whole. tid, max_row and max_occ exactly
+    the twin's."""
+    qc, tc, sph, pred, grid = bc.rowk_grid_case(11, code, dtype, run=6000, heavy=150,
+                                                light=200, nt=8000, occ_cap=5000,
+                                                table_size=65536)
+    for K in (4, 1024):
+        ref = rk.rowk_select_plain(qc, tc, sph, pred, K, grid)
+        out = rk.rowk_select(*_to(dev, (qc, tc, sph, pred)), K, _to(dev, grid))
+        torch.cuda.synchronize()
+        for a, b, what in zip(out, ref, ("tid", "max_row", "max_occ")):
+            assert torch.equal(a.cpu(), b), (what, K)
+    assert int(ref[2]) > grid.occ_cap and 4 < int(ref[1]) < 1024
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("form,code", bc.ROWK_DENSE)
+def test_rowk_dense_tiles_match_twin(dev, dtype, form, code):
+    """Kernel L's dense mode, every form and predicate: 301 queries (off the
+    block's 16) over 5,000 targets (past four staged tiles); tid and
+    max_row exactly the twin's."""
+    qc, tc, sph, pred = bc.rowk_dense_case(13, form, code, dtype, nq=301, nt=5000)
+    ref = rk.rowk_select_plain(qc, tc, sph, pred, 8)
+    out = rk.rowk_select(*_to(dev, (qc, tc, sph, pred)), 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0].cpu(), ref[0]) and int(out[1]) == int(ref[1]) > 8
+
+
+ROWK_SHORT = [("grid", p) for p in rk.PREDS] + [("dense", fc) for fc in bc.ROWK_DENSE]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mode,case", ROWK_SHORT)
+def test_rowk_short_walks_match_twin(dev, dtype, mode, case):
+    """Kernel L where every walk fits one warp's slice (occ_cap 90 on the
+    grid, 100 targets dense): the one-kernel path, exactly the twin's."""
+    if mode == "grid":
+        qc, tc, sph, pred, grid = bc.rowk_grid_case(9, case, dtype, run=100, heavy=40,
+                                                    light=200, nt=300, occ_cap=90,
+                                                    table_size=65536)
+    else:
+        (qc, tc, sph, pred), grid = bc.rowk_dense_case(3, *case, dtype, nq=301, nt=100), None
+    ref = rk.rowk_select_plain(qc, tc, sph, pred, 8, grid)
+    out = rk.rowk_select(*_to(dev, (qc, tc, sph, pred)), 8, _to(dev, grid))
+    torch.cuda.synchronize()
+    n = 3 if grid is not None else 2
+    for a, b, what in zip(out[:n], ref[:n], ("tid", "max_row", "max_occ")):
+        assert torch.equal(a.cpu(), b), what
 
 
 def _grid_spheres(rng, dtype, Q, T, lo, hi):
